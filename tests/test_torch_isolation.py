@@ -1,0 +1,71 @@
+"""The PyTorch port stands alone: no module of ``vlog_tpu_torch`` and not
+``chip_smoke.py`` imports ``jax`` or anything of ``vlog_tpu``.
+
+Checked twice: by importing every port module (and chip_smoke) in a
+subprocess whose ``sys.meta_path`` refuses jax/jaxlib/vlog_tpu, and by
+reading every import statement in their sources.
+"""
+
+from __future__ import annotations
+
+import ast
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+PORT = ROOT / "vlog_tpu_torch"
+BLOCKED = ("jax", "jaxlib", "vlog_tpu")
+
+_BLOCKED_IMPORT_SCRIPT = textwrap.dedent("""
+    import importlib, importlib.abc, pkgutil, sys
+
+    BLOCKED = {blocked!r}
+
+    class Block(importlib.abc.MetaPathFinder):
+        def find_spec(self, name, path=None, target=None):
+            if any(name == b or name.startswith(b + ".") for b in BLOCKED):
+                raise ImportError(f"blocked import of {{name}}")
+            return None
+
+    sys.meta_path.insert(0, Block())
+    sys.path.insert(0, {root!r})
+    import vlog_tpu_torch
+    names = ["vlog_tpu_torch"] + [
+        m.name for m in pkgutil.walk_packages(vlog_tpu_torch.__path__,
+                                              "vlog_tpu_torch.")]
+    for name in names:
+        importlib.import_module(name)
+    import chip_smoke
+    leaked = [m for m in sys.modules
+              if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
+    assert not leaked, leaked
+    print(len(names))
+""")
+
+
+def _roots(tree: ast.AST) -> set[str]:
+    roots = set()
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            roots.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            roots.add(node.module.split(".")[0])
+    return roots
+
+
+def test_port_imports_with_jax_and_vlog_tpu_blocked():
+    script = _BLOCKED_IMPORT_SCRIPT.format(blocked=BLOCKED, root=str(ROOT))
+    proc = subprocess.run([sys.executable, "-c", script], cwd=str(ROOT),
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    assert int(proc.stdout.strip().splitlines()[-1]) >= 20
+
+
+def test_no_source_names_jax_or_vlog_tpu():
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) >= 20
+    for path in files:
+        bad = _roots(ast.parse(path.read_text())) & set(BLOCKED)
+        assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
