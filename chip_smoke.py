@@ -9,16 +9,20 @@ Phases (any failure exits non-zero; none is caught):
    coder from the checkout's sources, timed;
 3. the kernel against its plain PyTorch version on the card at every
    rung shape of the 1080p ladder (Y and chroma, 24 frames): max abs
-   diff, differing pixels, kernel / plain / library (torch.matmul pair)
-   milliseconds and the card's bound for the same work (the larger of
-   bytes over the memory rate and the FLOP of the matrices' nonzero
-   taps over the FP32 rate);
+   diff, differing pixels; for the kernel, the plain version and the
+   library call (torch.matmul pair) the device milliseconds per call
+   (torch.profiler: the sum of the call's own kernel durations, each
+   call after an L2 flush) and the host-inclusive milliseconds per call
+   (CUDA events around a loop of calls); the card's bound for the same
+   work (the larger of bytes over the memory rate and the FLOP of the
+   matrices' nonzero taps over the FP32 rate) and the kernel's share of
+   it; the card's clocks, temperature and power before and after;
 4. the integer stages (intra, P, deblock) on CPU and on CUDA from the
    same uint8 frames: levels, MVs and reconstructions must be identical;
 5. the slice: a seeded synthetic 1920x1080 Y4M through
    ``TorchBackend(device="cuda").plan/run`` with the default ladder;
    the CMAF tree must parse with the port's own readers, the kernel's
-   launch counter must rise by 3 scaled rungs x 3 planes x 2 launches
+   launch counter must rise by 3 scaled rungs x 3 planes x 1 launch
    per dispatch, and each rung's mean PSNR-Y must clear a floor;
 6. where one 1080p frame's device time goes, stage by stage.
 
@@ -55,6 +59,9 @@ PSNR_FLOOR_DB = 30.0
 SRC_H, SRC_W = 1080, 1920
 FRAMES = 24             # one full 24-frame I+P chain: one dispatch
 REPS = 20               # timed repetitions per kernel shape
+L2_FLUSH_BYTES = 256 << 20   # > the 50 MB L2: each profiled call starts cold
+CLOCKS_QUERY = ("--query-gpu=clocks.sm,clocks.mem,clocks.max.sm,"
+                "temperature.gpu,power.draw")
 RUNG_SHAPES = ((720, 1280), (480, 854), (360, 640))
 
 
@@ -66,7 +73,14 @@ def fail(msg: str) -> None:
     raise SystemExit(f"chip_smoke FAILED: {msg}")
 
 
-def cuda_time_ms(fn, reps: int) -> float:
+def smi(query: str) -> str:
+    out = subprocess.run(["nvidia-smi", query, "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def call_ms(fn, reps: int) -> float:
+    """Host-inclusive ms per call: CUDA events around a loop of calls."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -77,6 +91,49 @@ def cuda_time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _device_kernels(prof) -> list:
+    return [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+class DeviceTimer:
+    """Device ms per call from torch.profiler: the sum of the durations
+    of the kernels the call launched, each call after a write of
+    L2_FLUSH_BYTES (its kernels are told apart by name and left out)."""
+
+    def __init__(self, dev):
+        from torch.profiler import ProfilerActivity, profile
+
+        self._profile = lambda: profile(
+            activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        self._buf = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
+        self.flush()
+        torch.cuda.synchronize()
+        with self._profile() as prof:
+            self.flush()
+            torch.cuda.synchronize()
+        self._flush_names = {e.name for e in _device_kernels(prof)}
+        if not self._flush_names:
+            fail("torch.profiler recorded no device kernels")
+
+    def flush(self) -> None:
+        self._buf.bitwise_not_()
+
+    def ms(self, fn, reps: int) -> float:
+        fn()
+        torch.cuda.synchronize()
+        with self._profile() as prof:
+            for _ in range(reps):
+                self.flush()
+                fn()
+            torch.cuda.synchronize()
+        own = [e for e in _device_kernels(prof)
+               if e.name not in self._flush_names]
+        if not own:
+            fail("torch.profiler recorded no device kernels of the call")
+        return sum(e.device_time_total for e in own) / reps / 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -102,11 +159,15 @@ def phase_kernel(n: int) -> dict:
     from vlog_tpu_torch.ops.resize import apply_resize_matrices, resample_matrix
 
     dev = torch.device("cuda")
+    log("clocks before kernel phase (sm, mem, max sm, temp, power): "
+        + smi(CLOCKS_QUERY))
+    timer = DeviceTimer(dev)
     g = torch.Generator(device=dev).manual_seed(1234)
     rows = []
     worst = 0
-    tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "ops_ms": 0.0,
-           "bytes_ms": 0.0}
+    keys = ("ms", "call_ms", "plain_ms", "plain_call_ms", "library_ms",
+            "library_call_ms", "ops_ms", "bytes_ms")
+    tot = dict.fromkeys(keys, 0.0)
     for (h, w) in RUNG_SHAPES:
         for plane, (H, W, dh, dw) in (("Y", (SRC_H, SRC_W, h, w)),
                                       ("C", (SRC_H // 2, SRC_W // 2,
@@ -129,38 +190,42 @@ def phase_kernel(n: int) -> dict:
             worst = max(worst, max_abs)
             xf = x.to(torch.float32)
             a_wt = a_w.t()
-            ms = cuda_time_ms(lambda: fused_resize.fused_resize_plane(x, a_h, a_w), REPS)
-            plain = cuda_time_ms(lambda: apply_resize_matrices(x, a_h, a_w), REPS)
-            lib = cuda_time_ms(lambda: torch.matmul(torch.matmul(a_h, xf), a_wt), REPS)
+            fns = {"": lambda: fused_resize.fused_resize_plane(x, a_h, a_w),
+                   "plain_": lambda: apply_resize_matrices(x, a_h, a_w),
+                   "library_": lambda: torch.matmul(torch.matmul(a_h, xf), a_wt)}
+            row = {"plane": plane, "src": [H, W], "dst": [dh, dw], "n": n,
+                   "max_abs_err": max_abs, "diff_pixels": n_diff}
+            for prefix, fn in fns.items():
+                row[prefix + "ms"] = timer.ms(fn, REPS)
+                row[prefix + "call_ms"] = call_ms(fn, REPS)
             fused_resize.launches = saved       # comparison launches do not count
             # The work the function needs: a zero tap leaves an fmaf sum
-            # unchanged, so only the bands' nonzero taps count as FLOP; the
-            # dense count is printed beside it as a side note.
+            # unchanged, so only the bands' nonzero taps count as FLOP.
             nnz_h, nnz_w = int((a_h != 0).sum()), int((a_w != 0).sum())
             flops = 2.0 * n * (nnz_h * W + dh * nnz_w)
-            dense_flops = 2.0 * n * (dh * H * W + dh * W * dw)
             nbytes = n * H * W + n * dh * dw + 4 * (nnz_h + nnz_w)
-            ops_ms = flops / PEAK_FP32_FLOPS * 1e3
-            bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+            row["ops_ms"] = flops / PEAK_FP32_FLOPS * 1e3
+            row["bytes_ms"] = nbytes / PEAK_BYTES_PER_S * 1e3
+            row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
+            row["faster_than_plain_and_library"] = (
+                row["ms"] < row["plain_ms"] and row["ms"] < row["library_ms"])
+            row["taps_per_row"] = [nnz_h / dh, nnz_w / dw]
+            rows.append(row)
+            log("resize " + json.dumps(row))
             # chroma runs twice per dispatch (U and V)
             mult = 1 if plane == "Y" else 2
-            tot["ms"] += mult * ms
-            tot["plain_ms"] += mult * plain
-            tot["library_ms"] += mult * lib
-            tot["ops_ms"] += mult * ops_ms
-            tot["bytes_ms"] += mult * bytes_ms
-            rows.append({"plane": plane, "src": [H, W], "dst": [dh, dw],
-                         "n": n, "max_abs_err": max_abs, "diff_pixels": n_diff,
-                         "ms": ms, "plain_ms": plain, "library_ms": lib,
-                         "bound_ms": max(ops_ms, bytes_ms),
-                         "bound_bytes_ms": bytes_ms, "bound_ops_ms": ops_ms,
-                         "taps_per_row": [nnz_h / dh, nnz_w / dw],
-                         "dense_gflop_side_note": dense_flops / 1e9})
-            log("resize " + json.dumps(rows[-1]))
+            for k in keys:
+                tot[k] += mult * row[k]
             del x, xf, got, ref, diff
     tot["bound_ms"] = max(tot["ops_ms"], tot["bytes_ms"])
     tot["bound_by"] = "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations"
+    tot["share_of_bound"] = tot["bound_ms"] / tot["ms"]
+    tot["faster_than_plain_and_library_at_every_shape"] = all(
+        r["faster_than_plain_and_library"] for r in rows)
     log("resize per dispatch " + json.dumps(tot))
+    log("clocks after kernel phase (sm, mem, max sm, temp, power): "
+        + smi(CLOCKS_QUERY))
     return {"max_abs_err": worst, **tot}
 
 
@@ -373,10 +438,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available; nothing was run")
         return 2
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    card = smi.stdout.strip().splitlines()[0]
+    card = smi("--query-gpu=name,power.limit")
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
@@ -392,7 +454,8 @@ def main() -> int:
         "source": "vlog_tpu_torch/csrc/fused_resize.cu",
         "replaces": "vlog_tpu/ops/pallas_ladder.py:101",
         "launches": launches, "max_abs_err": kern["max_abs_err"],
-        "ms": kern["ms"], "plain_ms": kern["plain_ms"],
+        "ms": kern["ms"], "call_ms": kern["call_ms"],
+        "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
         "library_ms": kern["library_ms"]}]}))
     log(card)

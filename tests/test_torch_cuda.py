@@ -7,7 +7,11 @@ device. On a machine with a card and without JAX, run them alone:
     python -m pytest -q --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerance for the resize: |diff| <= 1 and at most 0.1% of pixels (two
-float32 summation orders); the integer stages are bit-exact.
+float32 summation orders); the integer stages are bit-exact. At the 1080p
+ladder's shapes the kernel's pixels that differ from the plain version
+are counted exactly: the banded kernel sums the same products in the
+same order as the dense kernel it replaced, so the counts of that
+kernel's run stay.
 """
 
 from __future__ import annotations
@@ -21,6 +25,14 @@ from vlog_tpu_torch.ops.resize import apply_resize_matrices, resample_matrix
 
 pytestmark = pytest.mark.cuda
 
+# (source, rung) of every plane call of one 1080p-ladder dispatch, in the
+# order chip_smoke.py draws them, and the pixels (of 24 frames) that the
+# dense kernel differed from the plain version by, with seed 1234
+_SLICE = [((1080, 1920), (720, 1280)), ((540, 960), (360, 640)),
+          ((1080, 1920), (480, 854)), ((540, 960), (240, 427)),
+          ((1080, 1920), (360, 640)), ((540, 960), (180, 320))]
+_SLICE_DIFFS = [0, 23, 0, 20, 33, 10]
+
 
 @pytest.fixture
 def cuda():
@@ -29,27 +41,68 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n,src,dst", [
-    (3, (64, 96), (24, 32)),          # tiny
-    (2, (540, 960), (240, 427)),      # the 480p rung's odd-width chroma
-    (1, (2160, 3840), (1080, 1920)),  # a 4K source
-    (4, (37, 53), (50, 70)),          # upscale, ragged tiles
+def _diff(got, want):
+    diff = (got.to(torch.int16) - want.to(torch.int16)).abs()
+    return int(diff.max()), int((diff > 0).sum())
+
+
+def _check_against_plain(x, a_h, a_w):
+    before = fused_resize.launches
+    got = fused_resize.fused_resize_plane(x, a_h, a_w)
+    assert fused_resize.LAUNCHES_PER_CALL == 1
+    assert fused_resize.launches == before + 1
+    want = apply_resize_matrices(x, a_h, a_w)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and got.dtype == torch.uint8
+    max_abs, n_diff = _diff(got, want)
+    assert max_abs <= 1 and n_diff <= 1e-3 * got.numel()
+    return got, n_diff
+
+
+@pytest.mark.parametrize("n,src,dst,filt", [
+    (3, (64, 96), (24, 32), "lanczos3"),          # tiny
+    (2, (540, 960), (240, 427), "lanczos3"),      # the 480p rung's odd-width chroma
+    (1, (2160, 3840), (1080, 1920), "lanczos3"),  # a 4K source
+    (4, (37, 53), (50, 70), "lanczos3"),          # upscale, ragged tiles
+    *[(24, src, dst, "lanczos3") for src, dst in _SLICE],
+    *[(24, src, dst, f) for f in ("bilinear", "box")
+      for src, dst in (_SLICE[4], _SLICE[3])],
 ])
-def test_kernel_matches_plain_version(cuda, n, src, dst):
+def test_kernel_matches_plain_version(cuda, n, src, dst, filt):
     g = torch.Generator(device=cuda).manual_seed(n)
     x = torch.randint(0, 256, (n,) + src, generator=g, device=cuda,
                       dtype=torch.uint8)
-    a_h = torch.as_tensor(resample_matrix(src[0], dst[0]), device=cuda)
-    a_w = torch.as_tensor(resample_matrix(src[1], dst[1]), device=cuda)
-    before = fused_resize.launches
-    got = fused_resize.fused_resize_plane(x, a_h, a_w)
-    assert fused_resize.launches == before + fused_resize.LAUNCHES_PER_CALL
-    want = apply_resize_matrices(x, a_h, a_w)
-    torch.cuda.synchronize()
-    diff = (got.to(torch.int16) - want.to(torch.int16)).abs()
-    assert got.shape == (n,) + dst and got.dtype == torch.uint8
-    assert int(diff.max()) <= 1
-    assert float((diff > 0).float().mean()) <= 1e-3
+    a_h = torch.as_tensor(resample_matrix(src[0], dst[0], filt), device=cuda)
+    a_w = torch.as_tensor(resample_matrix(src[1], dst[1], filt), device=cuda)
+    _check_against_plain(x, a_h, a_w)
+
+
+def test_kernel_walks_a_dense_matrix_in_chunks(cuda):
+    """Row-normalised random matrices: every band is the whole row, wider
+    than one shared-memory chunk on both axes."""
+    rng = np.random.default_rng(8)
+    a_h, a_w = (rng.random(shape).astype(np.float32) for shape in
+                ((48, 300), (96, 700)))
+    a_h, a_w = (torch.as_tensor(a / a.sum(1, keepdims=True), device=cuda)
+                for a in (a_h, a_w))
+    x = torch.as_tensor(rng.integers(0, 256, (4, 300, 700), dtype=np.uint8),
+                        device=cuda)
+    got, _ = _check_against_plain(x, a_h, a_w)
+    # a second call with the same matrices reuses their band form
+    again = fused_resize.fused_resize_plane(x, a_h, a_w)
+    assert torch.equal(again, got)
+
+
+def test_slice_shapes_differ_from_plain_as_the_dense_kernel_did(cuda):
+    g = torch.Generator(device=cuda).manual_seed(1234)
+    counts = []
+    for src, dst in _SLICE:
+        x = torch.randint(0, 256, (24,) + src, generator=g, device=cuda,
+                          dtype=torch.uint8)
+        a_h = torch.as_tensor(resample_matrix(src[0], dst[0]), device=cuda)
+        a_w = torch.as_tensor(resample_matrix(src[1], dst[1]), device=cuda)
+        counts.append(_check_against_plain(x, a_h, a_w)[1])
+    assert counts == _SLICE_DIFFS
 
 
 def test_kernel_rejects_bad_inputs(cuda):

@@ -2,7 +2,8 @@
 
 ``resample_matrix`` and ``plan_ladder_matrices`` are copies of the JAX
 package's numpy builders (``vlog_tpu/ops/resize.py``), so both packages
-resize with the same float32 numbers. ``apply_resize_matrices`` is the
+resize with the same float32 numbers; ``band_form`` is the layout the
+fused kernel walks instead of the dense matrix. ``apply_resize_matrices`` is the
 plain PyTorch version of the fused resize kernel (ops/fused_resize.py):
 ``uint8(clip(round_half_even((A_h @ f32(x)) @ A_w.T), 0, 255))`` with
 both products in float32, in that order.
@@ -55,6 +56,36 @@ def resample_matrix(src: int, dst: int, filter: str = "lanczos3") -> np.ndarray:
     rowsum = w.sum(axis=1, keepdims=True)
     rowsum[rowsum == 0.0] = 1.0
     return (w / rowsum).astype(np.float32)
+
+
+def band_form(a: np.ndarray, group: int = 1) -> tuple[np.ndarray, np.ndarray]:
+    """Band form of a dense (dst, src) matrix, the fused kernel's layout.
+
+    Rows go ``group`` at a time. Group g has one window of ``span``
+    source indices from ``first[g]`` that holds every nonzero of its
+    rows, and ``taps[g, s, i] == a[g * group + i, first[g] + s]`` (zero
+    for a row past ``dst``). ``span`` is the widest group's window; a
+    window that would run past ``src`` starts further left, so every
+    padding tap still indexes a source element. Scattering ``taps`` back
+    gives ``a`` exactly. Any matrix works (a dense one has
+    ``span == src``). Returns ``(first (groups,) int32, taps (groups,
+    span, group) float32)``.
+    """
+    a = np.asarray(a, np.float32)
+    dst, src = a.shape
+    groups = -(-dst // group)
+    rows = np.zeros((groups * group, src), np.float32)
+    rows[:dst] = a
+    rows = rows.reshape(groups, group, src)
+    nz = (rows != 0).any(1)
+    has = nz.any(1)
+    lo = np.where(has, nz.argmax(1), 0)
+    hi = np.where(has, src - nz[:, ::-1].argmax(1), 1)
+    span = int((hi - lo).max(initial=1))
+    first = np.minimum(lo, src - span).astype(np.int32)
+    cols = first[:, None] + np.arange(span)
+    taps = np.take_along_axis(rows, cols[:, None, :], axis=2)
+    return first, np.ascontiguousarray(taps.transpose(0, 2, 1))
 
 
 def plan_ladder_matrices(src_h: int, src_w: int,
