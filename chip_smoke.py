@@ -5,14 +5,17 @@
 Phases (any failure exits non-zero; none is caught):
 
 1. the card's name and power limit (nvidia-smi);
-2. build the fused resize kernel (nvcc, sm_90a) and the native CABAC
-   coder from the checkout's sources, timed;
+2. build the fused resize kernel (nvcc, sm_90a) and the native entropy
+   coders (CABAC, CAVLC, JPEG scan) from the checkout's sources, the two
+   builds started together, timed;
 3. the kernel against its plain PyTorch version on the card at every
-   rung shape of the 1080p ladder (Y and chroma, 24 frames): max abs
-   diff, differing pixels; for the kernel, the plain version and the
-   library call (torch.matmul pair) the device milliseconds per call
+   rung shape of the 1080p ladder (Y and chroma) and at every frame
+   count a backend phase calls it with (24, 8 and 1): max abs diff,
+   differing pixels; at 24 frames, for the kernel, the plain version and
+   the library call (torch.matmul pair) the device milliseconds per call
    (torch.profiler: the sum of the call's own kernel durations, each
-   call after an L2 flush) and the host-inclusive milliseconds per call
+   call after an L2 flush; the raw kineto events and ``prof.events()``
+   must agree) and the host-inclusive milliseconds per call
    (CUDA events around a loop of calls); the card's bound for the same
    work (the larger of bytes over the memory rate and the FLOP of the
    matrices' nonzero taps over the FP32 rate) and the kernel's share of
@@ -20,13 +23,28 @@ Phases (any failure exits non-zero; none is caught):
 4. the integer stages (intra, P, deblock) on CPU and on CUDA from the
    same uint8 frames: levels, MVs and reconstructions must be identical;
 5. the slice: a seeded synthetic 1920x1080 Y4M through
-   ``TorchBackend(device="cuda").plan/run`` with the default ladder;
-   the CMAF tree must parse with the port's own readers, the kernel's
-   launch counter must rise by 3 scaled rungs x 3 planes x 1 launch
-   per dispatch, and each rung's mean PSNR-Y must clear a floor;
-6. where one 1080p frame's device time goes, stage by stage.
+   ``TorchBackend(device="cuda").plan/run`` with the defaults (default
+   ladder, thumbnail, resume); the CMAF tree must parse with the port's
+   own readers, the kernel's launch counter must rise by 3 scaled rungs
+   x 3 planes x 1 launch per dispatch plus 3 for the thumbnail, each
+   rung's mean PSNR-Y must clear a floor, the journal must hold one line
+   per dispatch after its header, and ``thumbnail.jpg`` must be a
+   1280x720 JPEG, the packed blocks of the backend's thumbnail stages
+   on the card; the same stages on the CPU path must agree with the
+   card's within the kernel's bound (resized planes) and the
+   coefficients' bound;
+6. intra: the same source, ``gop_mode="intra"``, 8 frames (one
+   dispatch), default ladder: 9 launches, the tree parses, PSNR floor;
+7. resume: the same source, the 360p rung, 48 frames (two dispatches):
+   an uninterrupted run, and a run stopped after dispatch 1 by its
+   ``progress_cb`` and then resumed; the two trees must be identical,
+   journal included;
+8. MPEG-TS: the same source and rung, 24 frames, ``hls_ts``: whole
+   188-byte packets, one video PES per frame;
+9. where one 1080p frame's device time goes, stage by stage.
 
-Prints a ``{"kernels": [...]}`` line, then as the last line
+Each phase prints its wall seconds. Prints a ``{"kernels": [...]}``
+line, the card's name and power limit, then as the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or vlog_tpu.
 """
 
@@ -38,6 +56,7 @@ import shutil
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -56,13 +75,27 @@ RESIZE_MAX_ABS = 1
 RESIZE_MAX_SHARE = 1e-3
 PSNR_FLOOR_DB = 30.0
 
+# The card's thumbnail against the CPU path's: the resize kernel and the
+# plain version may round a value within an ulp of x.5 apart (above), so
+# quantized JPEG coefficients may differ by 1 in a few blocks.
+THUMB_COEF_MAX_ABS = 1
+THUMB_MAX_BLOCK_SHARE = 1e-3
+
 SRC_H, SRC_W = 1080, 1920
 FRAMES = 24             # one full 24-frame I+P chain: one dispatch
+INTRA_FRAMES = 8        # one intra dispatch (frame_batch 8)
+RESUME_FRAMES = 48      # two dispatches of one 1 s segment each
+TS_FRAMES = 24
 REPS = 20               # timed repetitions per kernel shape
 L2_FLUSH_BYTES = 256 << 20   # > the 50 MB L2: each profiled call starts cold
 CLOCKS_QUERY = ("--query-gpu=clocks.sm,clocks.mem,clocks.max.sm,"
                 "temperature.gpu,power.draw")
 RUNG_SHAPES = ((720, 1280), (480, 854), (360, 640))
+# Frames per kernel call on the driven paths: a 24-frame chain (slice,
+# resume, ts), an intra dispatch, the thumbnail's one frame (the 720p
+# rung's shapes). The kernel phase holds the kernel to its plain version
+# at each; every backend phase checks that its plan calls with one.
+COMPARE_N = (FRAMES, INTRA_FRAMES, 1)
 
 
 def log(msg: str) -> None:
@@ -93,15 +126,29 @@ def call_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _device_kernels(prof) -> list:
-    return [e for e in prof.events()
+def _raw_kernels(prof) -> list[tuple[str, float]]:
+    """(name, us) of every device event of a profile, from its kineto
+    events: the list ``prof.events()`` is built from, read without the
+    event tree it builds on top (minutes for ~10^5 launches)."""
+    return [(e.name(), e.duration_ns() / 1e3)
+            for e in prof.profiler.kineto_results.events()
+            if e.device_type() == torch.autograd.DeviceType.CUDA]
+
+
+def _tree_kernels(prof) -> list[tuple[str, float]]:
+    """The same from ``prof.events()`` (the cross-check of the reader)."""
+    return [(e.name, e.device_time_total) for e in prof.events()
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
 
 class DeviceTimer:
     """Device ms per call from torch.profiler: the sum of the durations
     of the kernels the call launched, each call after a write of
-    L2_FLUSH_BYTES (its kernels are told apart by name and left out)."""
+    L2_FLUSH_BYTES (its kernels are told apart by name and left out).
+    Every profile is read twice, raw (``_raw_kernels``, the reader the
+    breakdown uses) and through ``prof.events()``; the two must agree."""
+
+    READERS_RTOL = 1e-6
 
     def __init__(self, dev):
         from torch.profiler import ProfilerActivity, profile
@@ -114,9 +161,11 @@ class DeviceTimer:
         with self._profile() as prof:
             self.flush()
             torch.cuda.synchronize()
-        self._flush_names = {e.name for e in _device_kernels(prof)}
-        if not self._flush_names:
+        self._flush = {read: {name for name, _ in read(prof)}
+                       for read in (_raw_kernels, _tree_kernels)}
+        if not all(self._flush.values()):
             fail("torch.profiler recorded no device kernels")
+        self.max_reader_gap = 0.0
 
     def flush(self) -> None:
         self._buf.bitwise_not_()
@@ -129,11 +178,17 @@ class DeviceTimer:
                 self.flush()
                 fn()
             torch.cuda.synchronize()
-        own = [e for e in _device_kernels(prof)
-               if e.name not in self._flush_names]
-        if not own:
+        raw, tree = ([us for name, us in read(prof) if name not in flush]
+                     for read, flush in self._flush.items())
+        if not raw:
             fail("torch.profiler recorded no device kernels of the call")
-        return sum(e.device_time_total for e in own) / reps / 1e3
+        gap = abs(sum(raw) - sum(tree)) / sum(tree) if tree else math.inf
+        if len(raw) != len(tree) or gap > self.READERS_RTOL:
+            fail(f"profiler readers disagree: raw {len(raw)} kernels "
+                 f"{sum(raw):.3f} us, prof.events() {len(tree)} kernels "
+                 f"{sum(tree):.3f} us")
+        self.max_reader_gap = max(self.max_reader_gap, gap)
+        return sum(raw) / reps / 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -141,17 +196,32 @@ def phase_build():
     from vlog_tpu_torch.native import build as native_build
     from vlog_tpu_torch.ops import fused_resize
 
-    t0 = time.perf_counter()
-    fused_resize.load_library()
-    t_kernel = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    native_build.get_lib()
-    t_native = time.perf_counter() - t0
+    def timed(fn):
+        t0 = time.perf_counter()
+        fn()
+        return time.perf_counter() - t0
+
+    # nvcc and g++ run at once; an error in either is raised here
+    with ThreadPoolExecutor(2) as pool:
+        kernel = pool.submit(timed, fused_resize.load_library)
+        native = pool.submit(timed, native_build.get_lib)
+        t_kernel, t_native = kernel.result(), native.result()
     report = [ln.strip() for ln in fused_resize.build_log.splitlines()
               if "registers" in ln or "spill" in ln or "Compiling" in ln]
     log("ptxas: " + " | ".join(report))
     log(f"build: fused_resize {t_kernel:.2f}s (nvcc {fused_resize.build_seconds:.2f}s), "
-        f"native cabac {t_native:.2f}s")
+        f"native CABAC/CAVLC/JPEG {t_native:.2f}s")
+
+
+def _held_to_plain(got, ref, what: str) -> tuple[int, int]:
+    """(max |diff|, differing pixels) of the kernel's output against the
+    plain version's; fails past RESIZE_MAX_ABS / RESIZE_MAX_SHARE."""
+    diff = (got.to(torch.int16) - ref.to(torch.int16)).abs()
+    max_abs, n_diff = int(diff.max()), int((diff > 0).sum())
+    if max_abs > RESIZE_MAX_ABS or n_diff > RESIZE_MAX_SHARE * diff.numel():
+        fail(f"{what} disagrees with the plain version: max |diff| "
+             f"{max_abs}, {n_diff} of {diff.numel()} pixels")
+    return max_abs, n_diff
 
 
 def phase_kernel(n: int) -> dict:
@@ -163,6 +233,7 @@ def phase_kernel(n: int) -> dict:
         + smi(CLOCKS_QUERY))
     timer = DeviceTimer(dev)
     g = torch.Generator(device=dev).manual_seed(1234)
+    g_held = torch.Generator(device=dev).manual_seed(4321)   # the other n
     rows = []
     worst = 0
     keys = ("ms", "call_ms", "plain_ms", "plain_call_ms", "library_ms",
@@ -172,29 +243,32 @@ def phase_kernel(n: int) -> dict:
         for plane, (H, W, dh, dw) in (("Y", (SRC_H, SRC_W, h, w)),
                                       ("C", (SRC_H // 2, SRC_W // 2,
                                              h // 2, w // 2))):
-            x = torch.randint(0, 256, (n, H, W), generator=g, device=dev,
-                              dtype=torch.uint8)
             a_h = torch.as_tensor(resample_matrix(H, dh), device=dev)
             a_w = torch.as_tensor(resample_matrix(W, dw), device=dev)
             saved = fused_resize.launches
-            got = fused_resize.fused_resize_plane(x, a_h, a_w)
-            ref = apply_resize_matrices(x, a_h, a_w)
-            torch.cuda.synchronize()
-            diff = (got.to(torch.int16) - ref.to(torch.int16)).abs()
-            max_abs = int(diff.max())
-            n_diff = int((diff > 0).sum())
-            share = n_diff / diff.numel()
-            if max_abs > RESIZE_MAX_ABS or share > RESIZE_MAX_SHARE:
-                fail(f"kernel disagrees at {plane} {H}x{W}->{dh}x{dw}: "
-                     f"max |diff| {max_abs}, {n_diff} pixels ({share:.2e})")
-            worst = max(worst, max_abs)
+            # held at every frame count a driven path gives the kernel
+            # (the tile schedule depends on n); timed at n
+            differ = {}
+            for m in COMPARE_N:
+                xm = torch.randint(0, 256, (m, H, W), device=dev,
+                                   generator=g if m == n else g_held,
+                                   dtype=torch.uint8)
+                differ[m] = _held_to_plain(
+                    fused_resize.fused_resize_plane(xm, a_h, a_w),
+                    apply_resize_matrices(xm, a_h, a_w),
+                    f"kernel at {plane} {H}x{W}->{dh}x{dw}, n={m}")
+                if m == n:
+                    x = xm
+            max_abs, n_diff = differ[n]
+            worst = max(worst, *(d[0] for d in differ.values()))
             xf = x.to(torch.float32)
             a_wt = a_w.t()
             fns = {"": lambda: fused_resize.fused_resize_plane(x, a_h, a_w),
                    "plain_": lambda: apply_resize_matrices(x, a_h, a_w),
                    "library_": lambda: torch.matmul(torch.matmul(a_h, xf), a_wt)}
             row = {"plane": plane, "src": [H, W], "dst": [dh, dw], "n": n,
-                   "max_abs_err": max_abs, "diff_pixels": n_diff}
+                   "max_abs_err": max_abs, "diff_pixels": n_diff,
+                   "held_at_n": {m: list(d) for m, d in differ.items()}}
             for prefix, fn in fns.items():
                 row[prefix + "ms"] = timer.ms(fn, REPS)
                 row[prefix + "call_ms"] = call_ms(fn, REPS)
@@ -217,12 +291,13 @@ def phase_kernel(n: int) -> dict:
             mult = 1 if plane == "Y" else 2
             for k in keys:
                 tot[k] += mult * row[k]
-            del x, xf, got, ref, diff
+            del x, xm, xf
     tot["bound_ms"] = max(tot["ops_ms"], tot["bytes_ms"])
     tot["bound_by"] = "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations"
     tot["share_of_bound"] = tot["bound_ms"] / tot["ms"]
     tot["faster_than_plain_and_library_at_every_shape"] = all(
         r["faster_than_plain_and_library"] for r in rows)
+    tot["profiler_readers_max_gap"] = timer.max_reader_gap
     log("resize per dispatch " + json.dumps(tot))
     log("clocks after kernel phase (sm, mem, max sm, temp, power): "
         + smi(CLOCKS_QUERY))
@@ -347,9 +422,10 @@ def phase_breakdown() -> None:
         stages["p_deblock"]()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    kernels = [e for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_us = sum(e.device_time for e in kernels)
+    # the kernel phase's reader (cross-checked there against prof.events(),
+    # whose event tree would take minutes for this profile's launches)
+    kernels = _raw_kernels(prof)
+    busy_us = sum(us for _, us in kernels)
     prof_line = ({"launches": len(kernels), "device_busy_s": round(busy_us / 1e6, 4),
                   "wall_s": round(wall, 4),
                   "busy_share": round(busy_us / 1e6 / wall, 4)}
@@ -370,30 +446,159 @@ def _write_y4m(path: Path, n: int, seed: int) -> None:
                 fp.write(v[j].tobytes())
 
 
-def phase_slice() -> int:
-    from vlog_tpu_torch.backends.torch_backend import TorchBackend
-    from vlog_tpu_torch.media import hls
+def _write_sources(work: Path, counts, seed: int) -> dict[int, Path]:
+    """One generated Y4M of the largest count; each shorter source is its
+    first frames (the same bytes _write_y4m writes for that count)."""
+    counts = sorted(set(counts))
+    paths = {n: work / f"src_1080p_{n}.y4m" for n in counts}
+    _write_y4m(paths[counts[-1]], counts[-1], seed)
+    data = paths[counts[-1]].read_bytes()
+    head = data.index(b"\n") + 1
+    frame = len(b"FRAME\n") + SRC_H * SRC_W * 3 // 2
+    for n in counts[:-1]:
+        paths[n].write_bytes(data[:head + n * frame])
+    return paths
+
+
+def _cmaf_samples(rdir: Path) -> int:
+    """Samples in a rung's fMP4 segments (init and every moof must parse)."""
     from vlog_tpu_torch.media.boxes import parse_box_tree
+
+    with open(rdir / "init.mp4", "rb") as fp:
+        if not any(b.type == "moov" for b in parse_box_tree(fp)):
+            fail(f"{rdir.name}/init.mp4 has no moov")
+    n = 0
+    for seg in sorted(rdir.glob("segment_*.m4s")):
+        with open(seg, "rb") as fp:
+            moof = next(b for b in parse_box_tree(fp) if b.type == "moof")
+        n += int.from_bytes(moof.find("traf", "trun").payload[4:8], "big")
+    return n
+
+
+def _check_rungs(res, out: Path, frames: int) -> None:
+    from vlog_tpu_torch.media import hls
+
+    hls.validate_master_playlist(out / "master.m3u8")
+    for r in res.rungs:
+        n = _cmaf_samples(out / r.name)
+        if n != frames:
+            fail(f"{r.name}: {n} samples in segments, want {frames}")
+        if r.mean_psnr_y is None or not r.mean_psnr_y > PSNR_FLOOR_DB:
+            fail(f"{r.name}: mean PSNR-Y {r.mean_psnr_y} <= {PSNR_FLOOR_DB}")
+        log(f"  rung {r.name} {r.width}x{r.height}: {r.segment_count} segments, "
+            f"{r.bytes_written} bytes, {r.achieved_bitrate} bps "
+            f"(target {r.target_bitrate}), mean PSNR-Y {r.mean_psnr_y:.2f} dB")
+
+
+def _jpeg_size(data: bytes) -> tuple[int, int]:
+    if data[:2] != b"\xff\xd8" or data[-2:] != b"\xff\xd9":
+        fail("thumbnail.jpg lacks SOI/EOI")
+    sof = data.index(b"\xff\xc0")
+    return (int.from_bytes(data[sof + 5:sof + 7], "big"),
+            int.from_bytes(data[sof + 7:sof + 9], "big"))
+
+
+def _frames_per_call(plan, phase: str) -> int:
+    """Frames per kernel call of a plan's dispatch; fails unless the
+    kernel phase held the kernel at that count."""
+    if plan.gop_len > 1:
+        n = max(1, -(-plan.frame_batch // plan.gop_len)) * plan.gop_len
+    else:
+        n = max(plan.frame_batch, 1)
+    if n not in COMPARE_N:
+        fail(f"{phase}: the kernel is called with {n} frames, a count the "
+             f"kernel phase did not hold ({COMPARE_N})")
+    return n
+
+
+def phase_slice(src: Path) -> int:
+    from vlog_tpu_torch.backends.torch_backend import TorchBackend
+    from vlog_tpu_torch.codecs.jpeg.encoder import pack_jpeg
+    from vlog_tpu_torch.media.probe import get_video_info
+    from vlog_tpu_torch.media.y4m import Y4mReader
+    from vlog_tpu_torch.ops import fused_resize
+
+    out = src.parent / "slice"
+    backend = TorchBackend(device="cuda")
+    plan = backend.plan(get_video_info(src), out_dir=out)
+    log("slice plan: " + ", ".join(f"{r.name} {r.width}x{r.height} qp{r.qp} "
+                                   f"{r.video_bitrate}bps" for r in plan.rungs)
+        + f"; gop {plan.gop_len}, frame_batch {plan.frame_batch}, "
+        f"thumbnail {plan.thumbnail}")
+    dispatches = math.ceil(FRAMES / _frames_per_call(plan, "slice"))
+    scaled = sum(1 for r in plan.rungs
+                 if (r.height, r.width) != (SRC_H, SRC_W))
+    thumb_launches = 3 * fused_resize.LAUNCHES_PER_CALL   # Y, U, V once
+    fused_resize.launches = 0
+    t0 = time.perf_counter()
+    res = backend.run(plan)
+    wall = time.perf_counter() - t0
+    launches = fused_resize.launches
+    expected = scaled * 3 * fused_resize.LAUNCHES_PER_CALL * dispatches \
+        + thumb_launches
+    if launches != expected:
+        fail(f"kernel launches {launches}, expected {expected} "
+             f"({scaled} scaled rungs x 3 planes x "
+             f"{fused_resize.LAUNCHES_PER_CALL} launches x {dispatches} "
+             f"dispatches + {thumb_launches} for the thumbnail)")
+    log(f"slice: {res.frames_processed} frames in {wall:.2f}s wall; stage_s "
+        + json.dumps(res.stage_s) + f"; kernel launches {launches}")
+    if not (out / "manifest.mpd").read_text().startswith("<?xml"):
+        fail("manifest.mpd malformed")
+    _check_rungs(res, out, FRAMES)
+    journal = (out / "rc_journal.jsonl").read_text().splitlines()
+    if len(journal) != 1 + dispatches or json.loads(journal[0])["v"] != 1:
+        fail(f"rc_journal.jsonl has {len(journal)} lines, want 1 + {dispatches}")
+
+    thumb = (out / "thumbnail.jpg").read_bytes()
+    th = max(2, round(SRC_H * 1280 / SRC_W / 2) * 2)
+    if _jpeg_size(thumb) != (th, 1280):
+        fail(f"thumbnail is {_jpeg_size(thumb)}, want {(th, 1280)}")
+    # The backend's own thumbnail stages (``_write_thumbnail`` is
+    # ``pack_jpeg`` of ``_thumbnail_blocks`` of ``_thumbnail_planes``) on
+    # the card again (launches not counted) and on the CPU path: the
+    # file on disk is the card's blocks packed; the resized planes are
+    # held to the kernel's bound, the quantized coefficients to theirs.
+    with Y4mReader(src) as reader:
+        frame = reader.read_frame(0)
+    saved = fused_resize.launches
+    card_planes = backend._thumbnail_planes(*frame)
+    fused_resize.launches = saved
+    card = backend._thumbnail_blocks(*card_planes)
+    cpu_backend = TorchBackend(device="cpu")
+    cpu_planes = cpu_backend._thumbnail_planes(*frame)
+    cpu = cpu_backend._thumbnail_blocks(*cpu_planes)
+    if pack_jpeg(card) != thumb:
+        fail("thumbnail.jpg is not the card's thumbnail blocks packed")
+    planes = [_held_to_plain(a.cpu(), b, f"thumbnail plane {i}")
+              for i, (a, b) in enumerate(zip(card_planes, cpu_planes))]
+    coef_diff = [np.abs(a.astype(np.int64) - b)
+                 for a, b in ((card.y, cpu.y), (card.u, cpu.u), (card.v, cpu.v))]
+    n_blocks = sum(d.shape[0] for d in coef_diff)
+    bad_blocks = sum(int((d > 0).any(1).sum()) for d in coef_diff)
+    coef_max = max(int(d.max()) for d in coef_diff)
+    log("thumbnail card vs CPU path: " + json.dumps({
+        "resized_planes_max_abs_and_differ_yuv": planes,
+        "coefs_differ": sum(int((d > 0).sum()) for d in coef_diff),
+        "coef_max_abs": coef_max, "blocks_differ": bad_blocks,
+        "blocks": n_blocks, "jpeg_bytes_equal": pack_jpeg(cpu) == thumb}))
+    if coef_max > THUMB_COEF_MAX_ABS or bad_blocks > THUMB_MAX_BLOCK_SHARE * n_blocks:
+        fail(f"thumbnail coefficients differ from the CPU path: max {coef_max}, "
+             f"{bad_blocks} of {n_blocks} blocks")
+    return launches
+
+
+def phase_intra(src: Path) -> int:
+    from vlog_tpu_torch.backends.torch_backend import TorchBackend
     from vlog_tpu_torch.media.probe import get_video_info
     from vlog_tpu_torch.ops import fused_resize
 
-    work = ROOT / "vlog_tpu_torch" / "_build" / "smoke"
-    shutil.rmtree(work, ignore_errors=True)
-    work.mkdir(parents=True)
-    src = work / "src_1080p.y4m"
-    t0 = time.perf_counter()
-    _write_y4m(src, FRAMES, seed=11)
-    log(f"slice: wrote {FRAMES}-frame 1920x1080 Y4M in {time.perf_counter() - t0:.1f}s")
-
+    out = src.parent / "intra"
     backend = TorchBackend(device="cuda")
-    plan = backend.plan(get_video_info(src), out_dir=work / "out")
-    log("slice plan: " + ", ".join(f"{r.name} {r.width}x{r.height} qp{r.qp} "
-                                   f"{r.video_bitrate}bps" for r in plan.rungs)
-        + f"; gop {plan.gop_len}, frame_batch {plan.frame_batch}")
-    chains_per = max(1, -(-plan.frame_batch // plan.gop_len))
-    dispatches = math.ceil(FRAMES / (chains_per * plan.gop_len))
-    scaled = sum(1 for r in plan.rungs
-                 if (r.height, r.width) != (SRC_H, SRC_W))
+    plan = backend.plan(get_video_info(src), out_dir=out, gop_mode="intra",
+                        thumbnail=False)
+    dispatches = math.ceil(INTRA_FRAMES / _frames_per_call(plan, "intra"))
+    scaled = sum(1 for r in plan.rungs if (r.height, r.width) != (SRC_H, SRC_W))
     fused_resize.launches = 0
     t0 = time.perf_counter()
     res = backend.run(plan)
@@ -401,36 +606,105 @@ def phase_slice() -> int:
     launches = fused_resize.launches
     expected = scaled * 3 * fused_resize.LAUNCHES_PER_CALL * dispatches
     if launches != expected:
-        fail(f"kernel launches {launches}, expected {expected} "
-             f"({scaled} scaled rungs x 3 planes x "
-             f"{fused_resize.LAUNCHES_PER_CALL} launches x {dispatches} dispatches)")
-    log(f"slice: {res.frames_processed} frames in {wall:.2f}s wall; stage_s "
-        + json.dumps(res.stage_s) + f"; kernel launches {launches}")
+        fail(f"intra: kernel launches {launches}, expected {expected}")
+    log(f"intra: {res.frames_processed} frames (gop {plan.gop_len}) in "
+        f"{wall:.2f}s wall; stage_s {json.dumps(res.stage_s)}; "
+        f"kernel launches {launches}")
+    _check_rungs(res, out, INTRA_FRAMES)
+    return launches
 
-    out = work / "out"
-    hls.validate_master_playlist(out / "master.m3u8")
-    if not (out / "manifest.mpd").read_text().startswith("<?xml"):
-        fail("manifest.mpd malformed")
-    for r in res.rungs:
-        with open(out / r.name / "init.mp4", "rb") as fp:
-            if not any(b.type == "moov" for b in parse_box_tree(fp)):
-                fail(f"{r.name}/init.mp4 has no moov")
-        segs = sorted((out / r.name).glob("segment_*.m4s"))
-        n_samples = 0
-        for seg in segs:
-            with open(seg, "rb") as fp:
-                tree = parse_box_tree(fp)
-            moof = next(b for b in tree if b.type == "moof")
-            trun = moof.find("traf", "trun")
-            n_samples += int.from_bytes(trun.payload[4:8], "big")
-        if n_samples != FRAMES:
-            fail(f"{r.name}: {n_samples} samples in segments, want {FRAMES}")
-        if r.mean_psnr_y is None or not r.mean_psnr_y > PSNR_FLOOR_DB:
-            fail(f"{r.name}: mean PSNR-Y {r.mean_psnr_y} <= {PSNR_FLOOR_DB}")
-        log(f"rung {r.name} {r.width}x{r.height}: {len(segs)} segments, "
-            f"{r.bytes_written} bytes, {r.achieved_bitrate} bps "
-            f"(target {r.target_bitrate}), mean PSNR-Y {r.mean_psnr_y:.2f} dB")
-    shutil.rmtree(work, ignore_errors=True)
+
+class _Stop(Exception):
+    pass
+
+
+def phase_resume(src: Path) -> int:
+    from vlog_tpu_torch import config
+    from vlog_tpu_torch.backends.torch_backend import TorchBackend
+    from vlog_tpu_torch.media.probe import get_video_info
+    from vlog_tpu_torch.ops import fused_resize
+
+    backend = TorchBackend(device="cuda")
+    rung = config.QUALITY_LADDER[-1]                     # 360p
+    info = get_video_info(src)
+    plan_for = lambda out: backend.plan(           # noqa: E731
+        info, (rung,), out, segment_duration_s=1.0, thumbnail=False)
+
+    def stop_after_first(done, total, msg):
+        if done >= 24:
+            raise _Stop(msg)
+
+    whole, cut = src.parent / "resume_whole", src.parent / "resume_cut"
+    _frames_per_call(plan_for(whole), "resume")
+    fused_resize.launches = 0
+    t0 = time.perf_counter()
+    backend.run(plan_for(whole), resume=False)
+    t_whole = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    try:
+        backend.run(plan_for(cut), progress_cb=stop_after_first, resume=False)
+        fail("resume: the interrupted run was not stopped")
+    except _Stop:
+        pass
+    t_cut = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    res = backend.run(plan_for(cut), resume=True)
+    t_resumed = time.perf_counter() - t0
+    launches = fused_resize.launches
+    if launches != 4 * 3 * fused_resize.LAUNCHES_PER_CALL:
+        fail(f"resume: kernel launches {launches}, expected 12 (4 dispatches)")
+    if res.resumed_segments != 1:
+        fail(f"resume: resumed_segments {res.resumed_segments}, want 1")
+    files = {p.relative_to(whole): p.read_bytes()
+             for p in sorted(whole.rglob("*")) if p.is_file()}
+    got = {p.relative_to(cut): p.read_bytes()
+           for p in sorted(cut.rglob("*")) if p.is_file()}
+    differ = sorted(str(k) for k in files.keys() | got.keys()
+                    if files.get(k) != got.get(k))
+    if differ:
+        fail(f"resume: the resumed tree differs from the uninterrupted one: {differ}")
+    log(f"resume: {len(files)} files identical (journal included); "
+        f"uninterrupted {t_whole:.2f}s, stopped after dispatch 1 {t_cut:.2f}s, "
+        f"resumed {t_resumed:.2f}s; kernel launches {launches}")
+    return launches
+
+
+def phase_ts(src: Path) -> int:
+    from vlog_tpu_torch import config
+    from vlog_tpu_torch.backends.torch_backend import TorchBackend
+    from vlog_tpu_torch.media.probe import get_video_info
+    from vlog_tpu_torch.ops import fused_resize
+
+    out = src.parent / "ts"
+    backend = TorchBackend(device="cuda")
+    plan = backend.plan(get_video_info(src), (config.QUALITY_LADDER[-1],), out,
+                        segment_duration_s=1.0, thumbnail=False,
+                        streaming_format="hls_ts")
+    _frames_per_call(plan, "ts")
+    fused_resize.launches = 0
+    t0 = time.perf_counter()
+    res = backend.run(plan)
+    wall = time.perf_counter() - t0
+    launches = fused_resize.launches
+    if launches != 3 * fused_resize.LAUNCHES_PER_CALL:
+        fail(f"ts: kernel launches {launches}, expected 3")
+    pes = 0
+    segs = sorted((out / "360p").glob("segment_*.ts"))
+    for seg in segs:
+        data = seg.read_bytes()
+        if not data or len(data) % 188:
+            fail(f"{seg.name}: {len(data)} bytes, not whole 188-byte packets")
+        for i in range(0, len(data), 188):
+            if data[i] != 0x47:
+                fail(f"{seg.name}: packet at {i} lacks the 0x47 sync byte")
+            pid = ((data[i + 1] & 0x1F) << 8) | data[i + 2]
+            pes += pid == 0x100 and bool(data[i + 1] & 0x40)
+    if pes != TS_FRAMES:
+        fail(f"ts: {pes} video PES, want {TS_FRAMES}")
+    if (out / "360p" / "init.mp4").exists() or (out / "manifest.mpd").exists():
+        fail("ts: a CMAF init segment or DASH manifest was written")
+    log(f"ts: {len(segs)} segments, {pes} video PES in {wall:.2f}s wall; "
+        f"{res.rungs[0].bytes_written} bytes; kernel launches {launches}")
     return launches
 
 
@@ -443,17 +717,39 @@ def main() -> int:
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"python {sys.version.split()[0]}")
 
-    phase_build()
-    kern = phase_kernel(n=FRAMES)
-    phase_integer()
-    launches = phase_slice()
-    phase_breakdown()
+    phase_s = {}
+
+    def timed(name, fn, *args):
+        t0 = time.perf_counter()
+        value = fn(*args)
+        phase_s[name] = round(time.perf_counter() - t0, 2)
+        log(f"phase {name}: {phase_s[name]}s")
+        return value
+
+    timed("build", phase_build)
+    kern = timed("kernel", phase_kernel, FRAMES)
+    timed("integer", phase_integer)
+    work = ROOT / "vlog_tpu_torch" / "_build" / "smoke"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    sources = timed("write_y4m", _write_sources, work,
+                    (FRAMES, INTRA_FRAMES, RESUME_FRAMES, TS_FRAMES), 11)
+    launches = {
+        "slice": timed("slice", phase_slice, sources[FRAMES]),
+        "intra": timed("intra", phase_intra, sources[INTRA_FRAMES]),
+        "resume": timed("resume", phase_resume, sources[RESUME_FRAMES]),
+        "ts": timed("ts", phase_ts, sources[TS_FRAMES]),
+    }
+    shutil.rmtree(work, ignore_errors=True)
+    timed("breakdown", phase_breakdown)
+    log("launches by phase " + json.dumps(launches))
+    log("phase seconds " + json.dumps(phase_s))
 
     log(json.dumps({"kernels": [{
         "name": "fused_resize_plane", "route": "cuda",
         "source": "vlog_tpu_torch/csrc/fused_resize.cu",
         "replaces": "vlog_tpu/ops/pallas_ladder.py:101",
-        "launches": launches, "max_abs_err": kern["max_abs_err"],
+        "launches": sum(launches.values()), "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"], "call_ms": kern["call_ms"],
         "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],

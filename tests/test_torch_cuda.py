@@ -142,3 +142,32 @@ def test_chain_program_cpu_and_cuda_identical(cuda):
             np.testing.assert_allclose(outs["cuda"][k], want, rtol=1e-5)
         else:
             np.testing.assert_array_equal(outs["cuda"][k], want, err_msg=k)
+
+
+def test_thumbnail_float_stages_cpu_and_cuda_identical(cuda):
+    """The thumbnail's float stages after the resize (BT.709 RGB, the JPEG
+    colour conversion and FDCT + quantization) give the same bits on CPU
+    and CUDA from the same planes, and so the same JPEG bytes."""
+    from vlog_tpu_torch.codecs.jpeg.encoder import (dct_quantize_420,
+                                                    encode_jpeg_rgb,
+                                                    rgb_to_jpeg_planes)
+    from vlog_tpu_torch.ops.colorspace import yuv420_to_rgb
+
+    rng = np.random.default_rng(12)
+    y = rng.integers(0, 256, (720, 1280), dtype=np.uint8)
+    u = rng.integers(0, 256, (360, 640), dtype=np.uint8)
+    v = rng.integers(0, 256, (360, 640), dtype=np.uint8)
+    outs = {}
+    for dev in ("cpu", cuda):
+        planes = [torch.as_tensor(p, device=dev) for p in (y, u, v)]
+        rgb = yuv420_to_rgb(*planes, standard="bt709")
+        rgb8 = (rgb * 255).to(torch.uint8)
+        jp = rgb_to_jpeg_planes(rgb8)
+        outs[str(dev)] = {
+            "rgb": rgb.cpu().numpy().view(np.uint32),
+            **{f"plane{i}": p.cpu().numpy() for i, p in enumerate(jp)},
+            **{f"coef{i}": c.cpu().numpy()
+               for i, c in enumerate(dct_quantize_420(*jp, quality=85))},
+            "jpeg": np.frombuffer(encode_jpeg_rgb(rgb8, quality=85), np.uint8)}
+    for k, want in outs["cpu"].items():
+        np.testing.assert_array_equal(outs["cuda"][k], want, err_msg=k)

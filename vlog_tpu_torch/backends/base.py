@@ -35,8 +35,14 @@ class ExecutionPlan:
     fps_num: int = 30
     fps_den: int = 1
     total_frames: int = 0
-    streaming_format: str = "cmaf"
+    streaming_format: str = "cmaf"     # "cmaf" (fMP4) or "hls_ts"
+    thumbnail: bool = True
+    # I+P chain length; 1 = all-intra. Always divides frames-per-segment
+    # so every segment starts on an IDR.
     gop_len: int = 1
+    # hls_ts mode: {audio_bitrate: (list_of_adts_frames, sample_rate)},
+    # muxed into each variant's TS segments
+    audio_adts: dict | None = None
 
 
 @dataclass
@@ -58,14 +64,18 @@ class RunResult:
     rungs: list[RungResult]
     frames_processed: int
     duration_s: float
+    thumbnail_path: str | None = None
     wall_s: float = 0.0
     variants: list = field(default_factory=list)
     fps: float = 0.0
     segment_duration_s: float = 0.0
     # seconds per stage: decode, device (program + synchronize), pull
-    # (device -> host copies), entropy (host CABAC), package (fMP4 writes)
+    # (device -> host copies), entropy (host CABAC/CAVLC), package
+    # (segment writes), thumbnail
     stage_s: dict = field(default_factory=dict)
     gop_len: int = 1
+    # segments (summed across rungs) taken from disk by a resumed run
+    resumed_segments: int = 0
 
 
 def plan_rung_geometry(src_w: int, src_h: int, rung: config.QualityRung,

@@ -2,8 +2,8 @@
 
 Same ``VLOG_*`` names and defaults as the JAX package's config (ladder,
 GOP structure, entropy, deblocking, search radius, batch and pipeline
-depth), so one environment configures both. Only what the H.264 I+P
-CMAF path reads is here.
+depth), so one environment configures both. Only what the port's H.264
+paths (I+P or intra-only, CMAF or MPEG-TS) read is here.
 """
 
 from __future__ import annotations
@@ -94,11 +94,13 @@ def ladder_for_source(source_height: int) -> tuple[QualityRung, ...]:
 
 SEGMENT_DURATION_S: float = _env_float("VLOG_SEGMENT_DURATION", 6.0,
                                        lo=1.0, hi=30.0)
+# "cmaf" (fMP4, HLS + DASH) or "hls_ts" (MPEG-TS, HLS only)
 STREAMING_FORMAT: str = _env_str("VLOG_STREAMING_FORMAT", "cmaf")
-# "p" = I + P chains; "intra" is not part of this slice.
+# "p" = I + P chains, "intra" = every frame an IDR.
 GOP_MODE: str = _env_str("VLOG_GOP_MODE", "p")
 GOP_LEN: int = _env_int("VLOG_GOP_LEN", 24, lo=1, hi=256)
 MOTION_SEARCH_RADIUS: int = _env_int("VLOG_MOTION_SEARCH", 8, lo=1, hi=32)
+# "cabac" (Main profile) or "cavlc" (Baseline)
 H264_ENTROPY: str = _env_str("VLOG_H264_ENTROPY", "cabac")
 H264_DEBLOCK: bool = _env_bool("VLOG_H264_DEBLOCK", True)
 TPU_FRAME_BATCH: int = _env_int("VLOG_TPU_FRAME_BATCH", 8, lo=1, hi=256)

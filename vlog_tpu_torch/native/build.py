@@ -1,11 +1,12 @@
-"""Build and load the native CABAC slice coder (ctypes).
+"""Build and load the native entropy coders (ctypes): H.264 CABAC and
+CAVLC slice data, NAL emulation prevention, the JPEG scan packer.
 
-Sources are copies of the JAX package's C coder: ``h264_cabac_enc.c``
-and ``cabac_engine.h`` verbatim, ``escape.c`` (NAL emulation
-prevention). The three ``*.inc`` table headers are committed as
-generated by ``vlog_tpu/native/gen_tables.py``,
-``gen_h264_cabac_tables.py`` and ``gen_hevc_tables.py`` (each file's
-first line names its generator).
+Sources are verbatim copies of the JAX package's C coders:
+``h264_cabac_enc.c`` with ``cabac_engine.h``, ``cavlc.c`` (which also
+holds ``vt_escape_emulation``) and ``jpeg_pack.c``. The three ``*.inc``
+table headers are committed as generated by
+``vlog_tpu/native/gen_tables.py``, ``gen_h264_cabac_tables.py`` and
+``gen_hevc_tables.py`` (each file's first line names its generator).
 
 The library is compiled with the system C++ compiler into the package's
 ignored ``_build/`` directory at first use. A failed build raises: there
@@ -22,7 +23,7 @@ from pathlib import Path
 
 _DIR = Path(__file__).resolve().parent
 _BUILD = _DIR.parent / "_build"
-_SOURCES = ("h264_cabac_enc.c", "escape.c")
+_SOURCES = ("h264_cabac_enc.c", "cavlc.c", "jpeg_pack.c")
 _DEPS = _SOURCES + ("cabac_engine.h", "cavlc_tables.inc",
                     "h264_cabac_tables.inc", "hevc_tables.inc")
 _LOCK = threading.Lock()
@@ -35,11 +36,11 @@ class NativeBuildError(RuntimeError):
 
 def _compile() -> Path:
     _BUILD.mkdir(parents=True, exist_ok=True)
-    so = _BUILD / "libvt_cabac.so"
+    so = _BUILD / "libvt_native.so"
     if so.exists() and all(so.stat().st_mtime >= (_DIR / p).stat().st_mtime
                            for p in _DEPS):
         return so
-    tmp = _BUILD / f"libvt_cabac.{os.getpid()}.so.tmp"
+    tmp = _BUILD / f"libvt_native.{os.getpid()}.so.tmp"
     cc = os.environ.get("CXX", "g++")
     cmd = [cc, "-O3", "-fPIC", "-shared", "-x", "c++",
            *(str(_DIR / s) for s in _SOURCES), "-I", str(_DIR), "-o", str(tmp)]
@@ -64,6 +65,24 @@ def get_lib() -> ctypes.CDLL:
         i32 = ctypes.POINTER(ctypes.c_int32)
         lib.vt_escape_emulation.restype = ctypes.c_int64
         lib.vt_escape_emulation.argtypes = [u8, ctypes.c_int64, u8]
+        for name in ("vt_cavlc_encode_slice", "vt_cavlc_encode_p_slice"):
+            fn = getattr(lib, name)
+            fn.restype = ctypes.c_int64
+            fn.argtypes = [
+                i32, i32, i32, i32,                  # level / mv arrays
+                ctypes.c_int, ctypes.c_int,          # mbh, mbw
+                u8, ctypes.c_int64,                  # header bytes
+                ctypes.c_uint32, ctypes.c_int,       # header tail bits
+                i32,                                 # scratch
+                u8, ctypes.c_int64,                  # out buffer
+            ]
+        u16 = ctypes.POINTER(ctypes.c_uint16)
+        lib.vt_jpeg_pack_scan.restype = ctypes.c_int64
+        lib.vt_jpeg_pack_scan.argtypes = [
+            i32, u8, ctypes.c_int64,                 # blocks, comp, n
+            u16, u8, u16, u8, u16, u8, u16, u8,      # 4 Huffman tables
+            u8, ctypes.c_int64,                      # out buffer
+        ]
         for name in ("vt_h264_cabac_i_slice", "vt_h264_cabac_p_slice"):
             fn = getattr(lib, name)
             fn.restype = ctypes.c_int64

@@ -36,3 +36,29 @@ class LaggedRateControl:
     def hunting(self) -> bool:
         """True while any controller wants the tight (depth-0) loop."""
         return any(c.hunting for c in self._controllers.values())
+
+    def replay(self, entries: dict[int, dict], start_batch: int,
+               depth: int) -> None:
+        """Rebuild controller state from a rate-control journal
+        (backends/rc_journal.py) as if batches ``0..start_batch-1`` had
+        run live: the same apply lag and hunting drains as the dispatch
+        loop. Afterwards, planning the resumed run's batch 0 reads the
+        state the uninterrupted run had when it planned ``start_batch``.
+
+        ``entries[k][rung]`` holds what :meth:`post` received for batch
+        k. Observations posted but not yet applied at the resume point
+        are re-indexed into the resumed run's batch space, so the lag
+        schedule continues where it stopped."""
+        for k in range(start_batch):
+            self.apply_upto(k - depth)
+            for name, ob in sorted(entries[k].items()):
+                if name not in self._controllers:
+                    continue
+                self.post(name, k, nbytes=ob["bytes"], frames=ob["frames"],
+                          frame_qps=ob.get("qps"), cost=ob.get("cost"))
+            if self.hunting():
+                self.apply_upto(k)
+        for dq in self._pending.values():
+            shifted = [(k - start_batch, *rest) for (k, *rest) in dq]
+            dq.clear()
+            dq.extend(shifted)

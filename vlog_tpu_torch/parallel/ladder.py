@@ -1,7 +1,11 @@
-"""The I+P chain ladder program on one device (port of the single-device
-body of ``vlog_tpu/parallel/ladder.py::_ladder_chain_cached``).
+"""The ladder programs on one device (port of the single-device bodies of
+``vlog_tpu/parallel/ladder.py::_ladder_chain_cached`` and
+``_ladder_encode_cached``).
 
-Per rung and dispatch: resize (the fused kernel on CUDA), MB padding,
+``ladder_encode_program`` is the intra-only step (``gop_mode="intra"``):
+resize, MB padding and one batched intra encode per rung.
+``ladder_chain_program`` is the I+P chain step. Per rung and dispatch:
+resize (the fused kernel on CUDA), MB padding,
 the chain's I frame, its P frames as a Python loop over time (each step
 batched over the dispatch's chains), in-loop deblocking, and the
 device-side in-chain rate adaptation driven by ``cost_proxy``. Levels
@@ -149,6 +153,36 @@ def _one_rung(y, u, v, rung_mats, qps, h, w, *, search, deblock, rcr):
         out["qp_eff"] = torch.stack(q_eff, 1)
         out["cost"] = torch.stack(costs, 1)
     return out
+
+
+def ladder_encode_program(rungs: tuple[RungSpec, ...], src_h: int,
+                          src_w: int, *, device="cuda") -> tuple[Callable, dict]:
+    """The intra-only ladder step for one device (port of the
+    single-device body of ``_ladder_encode_cached`` + ``_encode_rung``).
+
+    Returns ``(fn, mats)``; ``fn(y, u, v, mats, qps)`` takes y/u/v (n, H,
+    W) uint8 tensors and ``qps`` {rung: (n,) int32}; per rung: resize
+    (the fused kernel on CUDA), MB padding, one batched intra encode at
+    the per-frame QPs. It returns int16 ``luma_dc/luma_ac/chroma_dc/
+    chroma_ac`` (n, ...) and float32 ``sse_y`` (n,) over the display
+    region; reconstructions stay on the device.
+    """
+    dev = resolve_device(device)
+    mats = mats_from_numpy(ladder_matrices(rungs, src_h, src_w), dev)
+
+    def fn(y, u, v, mats, qps):
+        y, u, v = (torch.as_tensor(p, device=dev) for p in (y, u, v))
+        out = {}
+        for name, h, w, _ in rungs:
+            ry, ru, rv = resize_yuv420(y, u, v, mats[name])
+            levels = encode_frame(*_pad_mb(ry, ru, rv),
+                                  qp=_as_tensor(qps[name], dev, torch.int32))
+            out[name] = {k: levels[k].to(torch.int16) for k in
+                         ("luma_dc", "luma_ac", "chroma_dc", "chroma_ac")}
+            out[name]["sse_y"] = _sse(levels["recon_y"], ry, h, w)
+        return out
+
+    return fn, mats
 
 
 def ladder_chain_program(rungs: tuple[RungSpec, ...], src_h: int, src_w: int,
