@@ -10,8 +10,10 @@ Phases (any failure exits non-zero; none is caught):
    builds started together, timed;
 3. the kernel against its plain PyTorch version on the card at every
    rung shape of the 1080p ladder (Y and chroma) and at every frame
-   count a backend phase calls it with (24, 8 and 1): max abs diff,
-   differing pixels; at 24 frames, for the kernel, the plain version and
+   count a backend phase calls it with (24, 8, 6 and 1), and at the
+   sprite tiles' shapes (160x90, chroma 80x45) at the counts the sprite
+   phase calls with (8 and 2): max abs diff, differing pixels; at 24
+   frames (sprite tiles: 8), for the kernel, the plain version and
    the library call (torch.matmul pair) the device milliseconds per call
    (torch.profiler: the sum of the call's own kernel durations, each
    call after an L2 flush; the raw kineto events and ``prof.events()``
@@ -35,17 +37,37 @@ Phases (any failure exits non-zero; none is caught):
    coefficients' bound;
 6. intra: the same source, ``gop_mode="intra"``, 8 frames (one
    dispatch), default ladder: 9 launches, the tree parses, PSNR floor;
-7. resume: the same source, the 360p rung, 48 frames (two dispatches):
-   an uninterrupted run, and a run stopped after dispatch 1 by its
-   ``progress_cb`` and then resumed; the two trees must be identical,
-   journal included;
-8. MPEG-TS: the same source and rung, 24 frames, ``hls_ts``: whole
-   188-byte packets, one video PES per frame;
-9. where one 1080p frame's device time goes, stage by stage.
+7. mp4: the first 8 samples of the slice's 1080p rung (1 IDR + 7 P,
+   CABAC, deblocked, its rate control's QPs), taken from its CMAF
+   segment with the avcC of its init segment and written as a
+   progressive MP4 by the port's writer, through
+   ``TorchBackend(device="cuda").plan/run`` with the defaults: the
+   decoder reconstructs and deblocks on the card; 12 launches (9 + 3
+   for the thumbnail), the tree parses, 8 samples per rung; the run's
+   frames 0-1 bit-identical to the port's CPU decode of the same
+   samples; frame 5 read on a fresh source equal to the run's frame 5
+   (a read that starts mid-GOP); ``decode_s`` split into the host
+   parse, the reconstruction and the deblocking filter;
+8. sprites: ``generate_sprites(device="cuda")`` on an all-intra 1080p MP4
+   made the same way from the intra phase's 1080p rung, sampling every
+   frame (one chunk of 8 tiles), and on the I+P MP4 sampling frames 0
+   and 4 (a chunk of 2; the second read continues from frame 1, no
+   restart at the IDR): sheet size, VTT cues, 3 launches each, each
+   call's tiles held to the plain version, the I+P run's sampled frames
+   equal to the mp4 run's;
+9. resume: the same source, the 360p rung, 12 frames, 0.25 s segments
+   and one 6-frame chain per dispatch (two dispatches): an uninterrupted
+   run, and a run stopped after dispatch 1 by its ``progress_cb`` and
+   then resumed; the two trees must be identical, journal included;
+10. MPEG-TS: the same source and rung, 6 frames (one 0.25 s segment),
+   ``hls_ts``: whole 188-byte packets, one video PES per frame;
+11. where one 1080p frame's device time goes, stage by stage.
 
 Each phase prints its wall seconds. Prints a ``{"kernels": [...]}``
 line, the card's name and power limit, then as the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or vlog_tpu.
+Whether the optional libav ingest shim builds is printed on a line of
+its own; no phase uses it.
 """
 
 from __future__ import annotations
@@ -84,18 +106,30 @@ THUMB_MAX_BLOCK_SHARE = 1e-3
 SRC_H, SRC_W = 1080, 1920
 FRAMES = 24             # one full 24-frame I+P chain: one dispatch
 INTRA_FRAMES = 8        # one intra dispatch (frame_batch 8)
-RESUME_FRAMES = 48      # two dispatches of one 1 s segment each
-TS_FRAMES = 24
+MP4_FRAMES = 8          # samples of the MP4 sources (a cut 8-frame chain)
+SEEK_FRAME = 5          # read mid-GOP on a fresh source
+SHORT_SEG_S = 0.25      # resume and TS: 6-frame segments and chains,
+SHORT_BATCH = 6         # one chain per dispatch
+RESUME_FRAMES = 12      # two dispatches of one 0.25 s segment each
+TS_FRAMES = 6
 REPS = 20               # timed repetitions per kernel shape
 L2_FLUSH_BYTES = 256 << 20   # > the 50 MB L2: each profiled call starts cold
 CLOCKS_QUERY = ("--query-gpu=clocks.sm,clocks.mem,clocks.max.sm,"
                 "temperature.gpu,power.draw")
 RUNG_SHAPES = ((720, 1280), (480, 854), (360, 640))
-# Frames per kernel call on the driven paths: a 24-frame chain (slice,
-# resume, ts), an intra dispatch, the thumbnail's one frame (the 720p
-# rung's shapes). The kernel phase holds the kernel to its plain version
-# at each; every backend phase checks that its plan calls with one.
-COMPARE_N = (FRAMES, INTRA_FRAMES, 1)
+# Frames per kernel call on the driven paths: a 24-frame chain (slice),
+# an intra dispatch and the MP4's cut 8-frame chain, a 6-frame chain
+# (resume, ts), the thumbnail's one frame (the 720p rung's shapes). The
+# kernel phase holds the kernel to its plain version at each; every
+# backend phase checks that its plan calls with one.
+COMPARE_N = (FRAMES, INTRA_FRAMES, SHORT_BATCH, 1)
+# Sprite tiles (the default 160x90) of the 1080p sources, at the frames
+# per call of the sprite phase's two runs: a full decode chunk of 8 and
+# the skipping run's 2 tiles.
+SPRITE_SHAPES = (((SRC_H, SRC_W), (90, 160)),
+                 ((SRC_H // 2, SRC_W // 2), (45, 80)))
+SPRITE_N = (8, 2)
+SPRITE_SKIP_INTERVAL_S = 4 / 24     # tiles at frames 0 and 4 of 8
 
 
 def log(msg: str) -> None:
@@ -171,17 +205,26 @@ class DeviceTimer:
         self._buf.bitwise_not_()
 
     def ms(self, fn, reps: int) -> float:
+        """Device ms per call. A profile whose device kernels of the calls
+        are no whole number per call has lost events: it is taken again
+        (at most twice more); ``kernels_per_call`` keeps the count."""
         fn()
         torch.cuda.synchronize()
-        with self._profile() as prof:
-            for _ in range(reps):
-                self.flush()
-                fn()
-            torch.cuda.synchronize()
-        raw, tree = ([us for name, us in read(prof) if name not in flush]
-                     for read, flush in self._flush.items())
-        if not raw:
-            fail("torch.profiler recorded no device kernels of the call")
+        for _ in range(3):
+            with self._profile() as prof:
+                for _ in range(reps):
+                    self.flush()
+                    fn()
+                torch.cuda.synchronize()
+            raw, tree = ([us for name, us in read(prof) if name not in flush]
+                         for read, flush in self._flush.items())
+            if raw and len(raw) % reps == 0:
+                break
+            log(f"profile holds {len(raw)} device kernels for {reps} calls; "
+                "profiling again")
+        else:
+            fail("torch.profiler lost device kernels of the call three times")
+        self.kernels_per_call = len(raw) // reps
         gap = abs(sum(raw) - sum(tree)) / sum(tree) if tree else math.inf
         if len(raw) != len(tree) or gap > self.READERS_RTOL:
             fail(f"profiler readers disagree: raw {len(raw)} kernels "
@@ -224,83 +267,99 @@ def _held_to_plain(got, ref, what: str) -> tuple[int, int]:
     return max_abs, n_diff
 
 
-def phase_kernel(n: int) -> dict:
+def _shape_row(timer, plane, src, dst, n, counts, gens) -> dict:
+    """One plane shape: the kernel held to its plain version at every
+    count in ``counts`` (each on its own seeded input), timed at ``n``
+    against the plain version and the library call, with its bound."""
     from vlog_tpu_torch.ops import fused_resize
     from vlog_tpu_torch.ops.resize import apply_resize_matrices, resample_matrix
 
     dev = torch.device("cuda")
+    (H, W), (dh, dw) = src, dst
+    a_h = torch.as_tensor(resample_matrix(H, dh), device=dev)
+    a_w = torch.as_tensor(resample_matrix(W, dw), device=dev)
+    saved = fused_resize.launches
+    # held at every frame count a driven path gives the kernel (the tile
+    # schedule depends on n); timed at n
+    differ = {}
+    for m in counts:
+        xm = torch.randint(0, 256, (m, H, W), device=dev,
+                           generator=gens[0] if m == n else gens[1],
+                           dtype=torch.uint8)
+        differ[m] = _held_to_plain(
+            fused_resize.fused_resize_plane(xm, a_h, a_w),
+            apply_resize_matrices(xm, a_h, a_w),
+            f"kernel at {plane} {H}x{W}->{dh}x{dw}, n={m}")
+        if m == n:
+            x = xm
+    max_abs, n_diff = differ[n]
+    xf = x.to(torch.float32)
+    a_wt = a_w.t()
+    fns = {"": lambda: fused_resize.fused_resize_plane(x, a_h, a_w),
+           "plain_": lambda: apply_resize_matrices(x, a_h, a_w),
+           "library_": lambda: torch.matmul(torch.matmul(a_h, xf), a_wt)}
+    row = {"plane": plane, "src": [H, W], "dst": [dh, dw], "n": n,
+           "max_abs_err": max(d[0] for d in differ.values()),
+           "diff_pixels": n_diff,
+           "held_at_n": {m: list(d) for m, d in differ.items()}}
+    for prefix, fn in fns.items():
+        row[prefix + "ms"] = timer.ms(fn, REPS)
+        row[prefix + "kernels_per_call"] = timer.kernels_per_call
+        row[prefix + "call_ms"] = call_ms(fn, REPS)
+    fused_resize.launches = saved       # comparison launches do not count
+    # The work the function needs: a zero tap leaves an fmaf sum
+    # unchanged, so only the bands' nonzero taps count as FLOP.
+    nnz_h, nnz_w = int((a_h != 0).sum()), int((a_w != 0).sum())
+    flops = 2.0 * n * (nnz_h * W + dh * nnz_w)
+    nbytes = n * H * W + n * dh * dw + 4 * (nnz_h + nnz_w)
+    row["ops_ms"] = flops / PEAK_FP32_FLOPS * 1e3
+    row["bytes_ms"] = nbytes / PEAK_BYTES_PER_S * 1e3
+    row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
+    row["bound_by"] = "bytes" if row["bytes_ms"] >= row["ops_ms"] else "operations"
+    row["share_of_bound"] = row["bound_ms"] / row["ms"]
+    row["faster_than_plain_and_library"] = (
+        row["ms"] < row["plain_ms"] and row["ms"] < row["library_ms"])
+    row["taps_per_row"] = [nnz_h / dh, nnz_w / dw]
+    return row
+
+
+def phase_kernel(n: int) -> dict:
+    dev = torch.device("cuda")
     log("clocks before kernel phase (sm, mem, max sm, temp, power): "
         + smi(CLOCKS_QUERY))
     timer = DeviceTimer(dev)
-    g = torch.Generator(device=dev).manual_seed(1234)
-    g_held = torch.Generator(device=dev).manual_seed(4321)   # the other n
+    gens = (torch.Generator(device=dev).manual_seed(1234),
+            torch.Generator(device=dev).manual_seed(4321))   # the other n
     rows = []
-    worst = 0
     keys = ("ms", "call_ms", "plain_ms", "plain_call_ms", "library_ms",
             "library_call_ms", "ops_ms", "bytes_ms")
     tot = dict.fromkeys(keys, 0.0)
     for (h, w) in RUNG_SHAPES:
-        for plane, (H, W, dh, dw) in (("Y", (SRC_H, SRC_W, h, w)),
-                                      ("C", (SRC_H // 2, SRC_W // 2,
-                                             h // 2, w // 2))):
-            a_h = torch.as_tensor(resample_matrix(H, dh), device=dev)
-            a_w = torch.as_tensor(resample_matrix(W, dw), device=dev)
-            saved = fused_resize.launches
-            # held at every frame count a driven path gives the kernel
-            # (the tile schedule depends on n); timed at n
-            differ = {}
-            for m in COMPARE_N:
-                xm = torch.randint(0, 256, (m, H, W), device=dev,
-                                   generator=g if m == n else g_held,
-                                   dtype=torch.uint8)
-                differ[m] = _held_to_plain(
-                    fused_resize.fused_resize_plane(xm, a_h, a_w),
-                    apply_resize_matrices(xm, a_h, a_w),
-                    f"kernel at {plane} {H}x{W}->{dh}x{dw}, n={m}")
-                if m == n:
-                    x = xm
-            max_abs, n_diff = differ[n]
-            worst = max(worst, *(d[0] for d in differ.values()))
-            xf = x.to(torch.float32)
-            a_wt = a_w.t()
-            fns = {"": lambda: fused_resize.fused_resize_plane(x, a_h, a_w),
-                   "plain_": lambda: apply_resize_matrices(x, a_h, a_w),
-                   "library_": lambda: torch.matmul(torch.matmul(a_h, xf), a_wt)}
-            row = {"plane": plane, "src": [H, W], "dst": [dh, dw], "n": n,
-                   "max_abs_err": max_abs, "diff_pixels": n_diff,
-                   "held_at_n": {m: list(d) for m, d in differ.items()}}
-            for prefix, fn in fns.items():
-                row[prefix + "ms"] = timer.ms(fn, REPS)
-                row[prefix + "call_ms"] = call_ms(fn, REPS)
-            fused_resize.launches = saved       # comparison launches do not count
-            # The work the function needs: a zero tap leaves an fmaf sum
-            # unchanged, so only the bands' nonzero taps count as FLOP.
-            nnz_h, nnz_w = int((a_h != 0).sum()), int((a_w != 0).sum())
-            flops = 2.0 * n * (nnz_h * W + dh * nnz_w)
-            nbytes = n * H * W + n * dh * dw + 4 * (nnz_h + nnz_w)
-            row["ops_ms"] = flops / PEAK_FP32_FLOPS * 1e3
-            row["bytes_ms"] = nbytes / PEAK_BYTES_PER_S * 1e3
-            row["bound_ms"] = max(row["ops_ms"], row["bytes_ms"])
-            row["share_of_bound"] = row["bound_ms"] / row["ms"]
-            row["faster_than_plain_and_library"] = (
-                row["ms"] < row["plain_ms"] and row["ms"] < row["library_ms"])
-            row["taps_per_row"] = [nnz_h / dh, nnz_w / dw]
+        for plane, dst in (("Y", (h, w)), ("C", (h // 2, w // 2))):
+            src = (SRC_H, SRC_W) if plane == "Y" else (SRC_H // 2, SRC_W // 2)
+            row = _shape_row(timer, plane, src, dst, n, COMPARE_N, gens)
             rows.append(row)
             log("resize " + json.dumps(row))
             # chroma runs twice per dispatch (U and V)
             mult = 1 if plane == "Y" else 2
             for k in keys:
                 tot[k] += mult * row[k]
-            del x, xm, xf
+    # the sprite tiles: their own shapes, timed at a full decode chunk
+    sprite_rows = []
+    for plane, (src, dst) in zip("YC", SPRITE_SHAPES):
+        row = _shape_row(timer, plane, src, dst, SPRITE_N[0], SPRITE_N, gens)
+        sprite_rows.append(row)
+        log("resize sprite " + json.dumps(row))
     tot["bound_ms"] = max(tot["ops_ms"], tot["bytes_ms"])
     tot["bound_by"] = "bytes" if tot["bytes_ms"] >= tot["ops_ms"] else "operations"
     tot["share_of_bound"] = tot["bound_ms"] / tot["ms"]
     tot["faster_than_plain_and_library_at_every_shape"] = all(
-        r["faster_than_plain_and_library"] for r in rows)
+        r["faster_than_plain_and_library"] for r in rows + sprite_rows)
     tot["profiler_readers_max_gap"] = timer.max_reader_gap
     log("resize per dispatch " + json.dumps(tot))
     log("clocks after kernel phase (sm, mem, max sm, temp, power): "
         + smi(CLOCKS_QUERY))
+    worst = max(r["max_abs_err"] for r in rows + sprite_rows)
     return {"max_abs_err": worst, **tot}
 
 
@@ -377,7 +436,8 @@ def phase_integer(devices=("cpu", "cuda")) -> None:
 
 def phase_breakdown() -> None:
     """Where one 1080p frame's device time goes, stage by stage (host
-    clock around synchronized calls, after one warm-up call each), and
+    clock around one synchronized call each; the slice and mp4 phases
+    ran every stage at these shapes before), and
     the launch count and device-busy share of one P frame + deblock from
     torch.profiler."""
     from torch.profiler import ProfilerActivity, profile
@@ -410,7 +470,6 @@ def phase_breakdown() -> None:
     }
     secs = {}
     for name, fn in stages.items():
-        fn()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
@@ -498,17 +557,27 @@ def _jpeg_size(data: bytes) -> tuple[int, int]:
             int.from_bytes(data[sof + 7:sof + 9], "big"))
 
 
-def _frames_per_call(plan, phase: str) -> int:
-    """Frames per kernel call of a plan's dispatch; fails unless the
-    kernel phase held the kernel at that count."""
-    if plan.gop_len > 1:
-        n = max(1, -(-plan.frame_batch // plan.gop_len)) * plan.gop_len
+def _frames_per_call(plan, phase: str, frames: int) -> list[int]:
+    """Frames per kernel call of each dispatch of a plan over ``frames``
+    source frames (the backend dispatches only the chains that hold real
+    frames, a lone chain cut to its last real frame); fails unless the
+    kernel phase held the kernel at every such count."""
+    clen = plan.gop_len
+    if clen > 1:
+        batch_n = max(1, -(-plan.frame_batch // clen)) * clen
     else:
-        n = max(plan.frame_batch, 1)
-    if n not in COMPARE_N:
-        fail(f"{phase}: the kernel is called with {n} frames, a count the "
+        batch_n = max(plan.frame_batch, 1)
+    counts = []
+    for start in range(0, frames, batch_n):
+        n_real = min(batch_n, frames - start)
+        chains = -(-n_real // clen)
+        counts.append(batch_n if clen == 1 else
+                      chains * clen if chains > 1 else max(2, n_real))
+    bad = sorted(set(counts) - set(COMPARE_N))
+    if bad:
+        fail(f"{phase}: the kernel is called with {bad} frames, counts the "
              f"kernel phase did not hold ({COMPARE_N})")
-    return n
+    return counts
 
 
 def phase_slice(src: Path) -> int:
@@ -525,7 +594,7 @@ def phase_slice(src: Path) -> int:
                                    f"{r.video_bitrate}bps" for r in plan.rungs)
         + f"; gop {plan.gop_len}, frame_batch {plan.frame_batch}, "
         f"thumbnail {plan.thumbnail}")
-    dispatches = math.ceil(FRAMES / _frames_per_call(plan, "slice"))
+    dispatches = len(_frames_per_call(plan, "slice", FRAMES))
     scaled = sum(1 for r in plan.rungs
                  if (r.height, r.width) != (SRC_H, SRC_W))
     thumb_launches = 3 * fused_resize.LAUNCHES_PER_CALL   # Y, U, V once
@@ -597,7 +666,7 @@ def phase_intra(src: Path) -> int:
     backend = TorchBackend(device="cuda")
     plan = backend.plan(get_video_info(src), out_dir=out, gop_mode="intra",
                         thumbnail=False)
-    dispatches = math.ceil(INTRA_FRAMES / _frames_per_call(plan, "intra"))
+    dispatches = len(_frames_per_call(plan, "intra", INTRA_FRAMES))
     scaled = sum(1 for r in plan.rungs if (r.height, r.width) != (SRC_H, SRC_W))
     fused_resize.launches = 0
     t0 = time.perf_counter()
@@ -614,6 +683,209 @@ def phase_intra(src: Path) -> int:
     return launches
 
 
+def _cmaf_to_mp4(rdir: Path, n: int, path: Path) -> Path:
+    """The first ``n`` samples of a CMAF rung (its segments' trun/mdat,
+    the avc1 entry and timescale of its init.mp4) as a progressive MP4
+    written by the port's muxer: an upload in the platform's own output
+    format."""
+    from vlog_tpu_torch.media.boxes import parse_box_tree
+    from vlog_tpu_torch.media.fmp4 import Sample, TrackConfig, progressive_mp4
+
+    with open(rdir / "init.mp4", "rb") as fp:
+        moov = next(b for b in parse_box_tree(fp) if b.type == "moov")
+    entry = moov.find("trak", "mdia", "minf", "stbl", "stsd").payload[8:]
+    timescale = int.from_bytes(
+        moov.find("trak", "mdia", "mdhd").payload[12:16], "big")
+    samples = []
+    for seg in sorted(rdir.glob("segment_*.m4s")):
+        data = seg.read_bytes()
+        with open(seg, "rb") as fp:
+            moof = next(b for b in parse_box_tree(fp) if b.type == "moof")
+        trun = moof.find("traf", "trun").payload
+        pos = moof.offset + int.from_bytes(trun[8:12], "big", signed=True)
+        for k in range(int.from_bytes(trun[4:8], "big")):
+            dur, size, flags = (int.from_bytes(trun[i:i + 4], "big")
+                                for i in range(12 + 16 * k, 24 + 16 * k, 4))
+            samples.append(Sample(data[pos:pos + size], dur,
+                                  is_sync=not flags & 0x00010000))
+            pos += size
+    if len(samples) < n:
+        fail(f"{rdir}: {len(samples)} samples, want {n}")
+    width, height = (int.from_bytes(entry[i:i + 2], "big") for i in (32, 34))
+    path.write_bytes(progressive_mp4(
+        TrackConfig(1, "vide", timescale, entry, width, height), samples[:n]))
+    return path
+
+
+def _frames_equal(a, b, what: str) -> None:
+    for name, x, y in zip("yuv", a, b):
+        if x.shape != y.shape or not np.array_equal(x, y):
+            bad = int((x != y).sum()) if x.shape == y.shape else "shape"
+            fail(f"{what}: plane {name} differs ({bad} pixels)")
+
+
+def phase_mp4(work: Path) -> tuple[int, Path, tuple]:
+    """The slice's 1080p rung as an MP4 upload through the default plan.
+    Returns the launches, the MP4 and the run's decoded frames."""
+    from vlog_tpu_torch.backends import source as source_mod
+    from vlog_tpu_torch.backends import torch_backend
+    from vlog_tpu_torch.media import mp4 as mp4mod
+    from vlog_tpu_torch.media.probe import get_video_info
+    from vlog_tpu_torch.ops import fused_resize
+
+    path = _cmaf_to_mp4(work / "slice" / "1080p", MP4_FRAMES,
+                        work / "ip_1080p.mp4")
+    info = get_video_info(path)
+    sync = mp4mod.parse_mp4(path).video.samples.sync_indices
+    if (info.width, info.height, info.frame_count) != (SRC_W, SRC_H, MP4_FRAMES) \
+            or sync is None or list(sync) != [0]:
+        fail(f"mp4 source: {info.width}x{info.height}, {info.frame_count} "
+             f"samples, sync samples {sync}; want 1 IDR + {MP4_FRAMES - 1} P")
+
+    # the run's own source, its batches recorded: the sequential decode
+    opened, batches = [], []
+
+    def recording_source(*args, **kwargs):
+        src = source_mod.open_source(*args, **kwargs)
+        read = src.read_batches
+
+        def recorded(batch, start=0):
+            for item in read(batch, start):
+                batches.append(item)
+                yield item
+
+        src.read_batches = recorded
+        opened.append(src)
+        return src
+
+    out = work / "mp4"
+    backend = torch_backend.TorchBackend(device="cuda")
+    plan = backend.plan(info, out_dir=out)
+    dispatches = len(_frames_per_call(plan, "mp4", MP4_FRAMES))
+    scaled = sum(1 for r in plan.rungs if (r.height, r.width) != (SRC_H, SRC_W))
+    torch_backend.open_source = recording_source
+    fused_resize.launches = 0
+    try:
+        t0 = time.perf_counter()
+        res = backend.run(plan)
+        wall = time.perf_counter() - t0
+    finally:
+        torch_backend.open_source = source_mod.open_source
+    launches = fused_resize.launches
+    expected = (scaled * 3 * dispatches + 3) * fused_resize.LAUNCHES_PER_CALL
+    if launches != expected:
+        fail(f"mp4: kernel launches {launches}, expected {expected}")
+    _check_rungs(res, out, MP4_FRAMES)
+    src = opened[0]
+    if not isinstance(src, source_mod.Mp4H264FrameSource) \
+            or src.device.type != "cuda" or src.frames_decoded != MP4_FRAMES:
+        fail(f"mp4: the run read {type(src).__name__} on {src.device}, "
+             f"{src.frames_decoded} frames decoded")
+    seq = tuple(np.concatenate([b[i] for b in batches]) for i in range(3))
+    split = {k: round(v, 4) for k, v in src._decoder.stage_s.items()}
+    log(f"mp4: {res.frames_processed} frames in {wall:.2f}s wall; stage_s "
+        + json.dumps(res.stage_s) + f"; kernel launches {launches}; "
+        f"decode by stage (s, {MP4_FRAMES} frames: 1 I + "
+        f"{MP4_FRAMES - 1} P, 1080p) " + json.dumps(split) + "; per frame "
+        + json.dumps({k: round(v / MP4_FRAMES, 4) for k, v in split.items()}))
+
+    # the port's CPU decode of the same samples: frames 0-1 bit-identical
+    t0 = time.perf_counter()
+    with source_mod.Mp4H264FrameSource(path, "cpu") as cpu:
+        head = next(cpu.read_batches(2, 0))
+        cpu_split = {k: round(v, 4) for k, v in cpu._decoder.stage_s.items()}
+    t_cpu = time.perf_counter() - t0
+    _frames_equal(tuple(p[:2] for p in seq), head, "card vs CPU decode, frames 0-1")
+    # a read that starts mid-GOP on a fresh source: the sequential frame
+    t0 = time.perf_counter()
+    with source_mod.Mp4H264FrameSource(path, "cuda") as fresh:
+        got = next(fresh.read_batches(1, SEEK_FRAME))
+        n_dec = fresh.frames_decoded
+    t_seek = time.perf_counter() - t0
+    _frames_equal(tuple(p[SEEK_FRAME:SEEK_FRAME + 1] for p in seq), got,
+                  f"fresh read of frame {SEEK_FRAME}")
+    if n_dec != SEEK_FRAME + 1:
+        fail(f"fresh read of frame {SEEK_FRAME} decoded {n_dec} frames")
+    log(f"mp4: card frames 0-1 identical to the CPU decode ({t_cpu:.2f}s, "
+        f"by stage {json.dumps(cpu_split)}); frame {SEEK_FRAME} on a fresh "
+        f"source equals the run's ({n_dec} frames decoded from the IDR, "
+        f"{t_seek:.2f}s)")
+    return launches, path, seq
+
+
+def phase_sprites(work: Path, ip_path: Path, seq: tuple) -> int:
+    """generate_sprites on the card: every frame of an all-intra MP4, and
+    frames 0 and 4 of the I+P MP4 (a forward read)."""
+    from vlog_tpu_torch.backends import source as source_mod
+    from vlog_tpu_torch.ops import fused_resize
+    from vlog_tpu_torch.ops.resize import apply_resize_matrices, resize_yuv420_with
+    from vlog_tpu_torch.worker import sprites
+
+    intra = _cmaf_to_mp4(work / "intra" / "1080p", MP4_FRAMES,
+                         work / "intra_1080p.mp4")
+    calls, opened = [], []
+
+    def spy_resize(y, u, v, mats):
+        out = fused_resize.resize_yuv420(y, u, v, mats)
+        calls.append(((y, u, v), mats, out))
+        return out
+
+    def spy_open(*args, **kwargs):
+        opened.append(source_mod.open_source(*args, **kwargs))
+        return opened[-1]
+
+    runs = (("intra, every frame", intra, 1 / 24, 8, None),
+            ("I+P, frames 0 and 4", ip_path, SPRITE_SKIP_INTERVAL_S, 2, (0, 4)))
+    total = 0
+    sprites.resize_yuv420, sprites.open_source = spy_resize, spy_open
+    try:
+        for k, (name, path, interval, tiles, frames) in enumerate(runs):
+            calls.clear()
+            opened.clear()
+            fused_resize.launches = 0
+            t0 = time.perf_counter()
+            res = sprites.generate_sprites(path, work / f"sprites{k}",
+                                           interval_s=interval, device="cuda")
+            wall = time.perf_counter() - t0
+            launches = fused_resize.launches
+            total += launches
+            sheet = Path(res.sheet_paths[0]).read_bytes()
+            cues = Path(res.vtt_path).read_text().count("-->")
+            per_call = [c[0][0].shape[0] for c in calls]
+            if (res.tile_count, res.sheet_count, cues) != (tiles, 1, tiles) \
+                    or _jpeg_size(sheet) != (900, 1600):
+                fail(f"sprites ({name}): {res.tile_count} tiles, "
+                     f"{res.sheet_count} sheets, {cues} cues, sheet "
+                     f"{_jpeg_size(sheet)}; want {tiles}, 1, {tiles}, (900, 1600)")
+            if per_call != [tiles] or tiles not in SPRITE_N or launches != 3:
+                fail(f"sprites ({name}): kernel calls of {per_call} frames, "
+                     f"{launches} launches; want [{tiles}] held, 3")
+            held = []
+            for planes, mats, out in calls:
+                plain = resize_yuv420_with(*planes, mats,
+                                           plane_fn=apply_resize_matrices)
+                held += [_held_to_plain(o, r, f"sprite tile plane {i}")
+                         for i, (o, r) in enumerate(zip(out, plain))]
+            decoded = opened[0].frames_decoded
+            if frames is not None:
+                # the sampled frames are the sequential decode's, read
+                # forward: frames 0..4 decoded once each
+                got = tuple(p.cpu().numpy() for p in calls[0][0])
+                _frames_equal(tuple(p[list(frames)] for p in seq), got,
+                              f"sprites ({name}) sampled frames")
+                if decoded != frames[-1] + 1:
+                    fail(f"sprites ({name}): {decoded} frames decoded, want "
+                         f"{frames[-1] + 1} (a restart at the IDR decodes more)")
+            log(f"sprites ({name}): {res.tile_count} tiles, sheet "
+                f"{len(sheet)} bytes, {cues} cues, {decoded} frames decoded, "
+                f"{wall:.2f}s wall; kernel launches {launches}; tile planes "
+                f"vs plain (max |diff|, differing) {held}")
+    finally:
+        sprites.resize_yuv420 = fused_resize.resize_yuv420
+        sprites.open_source = source_mod.open_source
+    return total
+
+
 class _Stop(Exception):
     pass
 
@@ -628,14 +900,17 @@ def phase_resume(src: Path) -> int:
     rung = config.QUALITY_LADDER[-1]                     # 360p
     info = get_video_info(src)
     plan_for = lambda out: backend.plan(           # noqa: E731
-        info, (rung,), out, segment_duration_s=1.0, thumbnail=False)
+        info, (rung,), out, segment_duration_s=SHORT_SEG_S,
+        frame_batch=SHORT_BATCH, thumbnail=False)
+    whole, cut = src.parent / "resume_whole", src.parent / "resume_cut"
+    per_call = _frames_per_call(plan_for(whole), "resume", RESUME_FRAMES)
+    if len(per_call) != 2:
+        fail(f"resume: {len(per_call)} dispatches, want 2")
 
     def stop_after_first(done, total, msg):
-        if done >= 24:
+        if done >= per_call[0]:
             raise _Stop(msg)
 
-    whole, cut = src.parent / "resume_whole", src.parent / "resume_cut"
-    _frames_per_call(plan_for(whole), "resume")
     fused_resize.launches = 0
     t0 = time.perf_counter()
     backend.run(plan_for(whole), resume=False)
@@ -678,9 +953,10 @@ def phase_ts(src: Path) -> int:
     out = src.parent / "ts"
     backend = TorchBackend(device="cuda")
     plan = backend.plan(get_video_info(src), (config.QUALITY_LADDER[-1],), out,
-                        segment_duration_s=1.0, thumbnail=False,
+                        segment_duration_s=SHORT_SEG_S,
+                        frame_batch=SHORT_BATCH, thumbnail=False,
                         streaming_format="hls_ts")
-    _frames_per_call(plan, "ts")
+    _frames_per_call(plan, "ts", TS_FRAMES)
     fused_resize.launches = 0
     t0 = time.perf_counter()
     res = backend.run(plan)
@@ -727,6 +1003,11 @@ def main() -> int:
         return value
 
     timed("build", phase_build)
+    from vlog_tpu_torch.native import get_av_lib
+
+    log("libav ingest shim: " + ("built" if get_av_lib() is not None else
+                                 "unavailable on this machine (optional; "
+                                 "no phase uses it)"))
     kern = timed("kernel", phase_kernel, FRAMES)
     timed("integer", phase_integer)
     work = ROOT / "vlog_tpu_torch" / "_build" / "smoke"
@@ -737,9 +1018,11 @@ def main() -> int:
     launches = {
         "slice": timed("slice", phase_slice, sources[FRAMES]),
         "intra": timed("intra", phase_intra, sources[INTRA_FRAMES]),
-        "resume": timed("resume", phase_resume, sources[RESUME_FRAMES]),
-        "ts": timed("ts", phase_ts, sources[TS_FRAMES]),
     }
+    launches["mp4"], ip_path, seq = timed("mp4", phase_mp4, work)
+    launches["sprites"] = timed("sprites", phase_sprites, work, ip_path, seq)
+    launches["resume"] = timed("resume", phase_resume, sources[RESUME_FRAMES])
+    launches["ts"] = timed("ts", phase_ts, sources[TS_FRAMES])
     shutil.rmtree(work, ignore_errors=True)
     timed("breakdown", phase_breakdown)
     log("launches by phase " + json.dumps(launches))

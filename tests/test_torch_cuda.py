@@ -1,5 +1,7 @@
 """Card-only tests of the PyTorch port: the CUDA resize kernel against
-its plain version, and the integer stages on CUDA against the CPU.
+its plain version (the ladder's shapes and the sprite tiles'), the
+integer stages and the decoder's device functions on CUDA against the
+CPU, and the sprite worker on the card.
 
 Marked ``cuda``; each test skips (in its fixture) without a CUDA
 device. On a machine with a card and without JAX, run them alone:
@@ -171,3 +173,107 @@ def test_thumbnail_float_stages_cpu_and_cuda_identical(cuda):
             "jpeg": np.frombuffer(encode_jpeg_rgb(rgb8, quality=85), np.uint8)}
     for k, want in outs["cpu"].items():
         np.testing.assert_array_equal(outs["cuda"][k], want, err_msg=k)
+
+
+# Sprite tiles of a 1080p source (160x90, chroma 80x45: an odd height)
+# at the frame counts generate_sprites calls with: a full decode chunk
+# of 8 and a partial last chunk
+_SPRITE = [((1080, 1920), (90, 160)), ((540, 960), (45, 80))]
+
+
+@pytest.mark.parametrize("n", [8, 3])
+@pytest.mark.parametrize("src,dst", _SPRITE)
+def test_kernel_at_sprite_tile_shapes(cuda, n, src, dst):
+    g = torch.Generator(device=cuda).manual_seed(100 + n)
+    x = torch.randint(0, 256, (n,) + src, generator=g, device=cuda,
+                      dtype=torch.uint8)
+    a_h = torch.as_tensor(resample_matrix(src[0], dst[0]), device=cuda)
+    a_w = torch.as_tensor(resample_matrix(src[1], dst[1]), device=cuda)
+    _check_against_plain(x, a_h, a_w)
+
+
+def _decoder_cases(seed: int, mbh: int = 4, mbw: int = 5):
+    """Seeded intra levels (3 frames), P levels with the largest accepted
+    MVs (+-128 quarter pels) at the corner MBs, reference planes."""
+    rng = np.random.default_rng(seed)
+
+    def lv(shape, hi, p_zero):
+        a = rng.integers(-hi, hi + 1, shape).astype(np.int32)
+        return np.where(rng.random(shape) < p_zero, 0, a).astype(np.int32)
+
+    intra = {"luma_dc": lv((3, mbh, mbw, 4, 4), 40, 0.3),
+             "luma_ac": lv((3, mbh, mbw, 4, 4, 4, 4), 6, 0.7),
+             "chroma_dc": lv((3, 2, mbh, mbw, 2, 2), 30, 0.3),
+             "chroma_ac": lv((3, 2, mbh, mbw, 2, 2, 4, 4), 5, 0.8)}
+    mv = rng.integers(-128, 129, (mbh, mbw, 2)).astype(np.int32)
+    for (r, c), val in zip(((0, 0), (0, -1), (-1, 0), (-1, -1)),
+                           ((-128, -128), (-128, 128), (128, -128), (128, 128))):
+        mv[r, c] = val
+    p = {"luma": lv((mbh, mbw, 4, 4, 4, 4), 8, 0.7),
+         "chroma_dc": lv((2, mbh, mbw, 2, 2), 20, 0.4),
+         "chroma_ac": lv((2, mbh, mbw, 2, 2, 4, 4), 5, 0.8), "mv_q": mv}
+    h, w = 16 * mbh, 16 * mbw
+    ref = (rng.integers(0, 256, (h, w), dtype=np.uint8),
+           rng.integers(0, 256, (h // 2, w // 2), dtype=np.uint8),
+           rng.integers(0, 256, (h // 2, w // 2), dtype=np.uint8))
+    return intra, p, ref
+
+
+def test_decoder_device_functions_cpu_and_cuda_identical(cuda):
+    from vlog_tpu_torch.codecs.h264 import decoder as dec
+
+    intra, p, ref = _decoder_cases(21)
+    outs = {}
+    for dev in ("cpu", cuda):
+        got = {}
+        gop = dec.reconstruct_gop(intra, qp=29, device=dev)
+        one = dec.reconstruct_frame({k: v[1] for k, v in intra.items()},
+                                    qp=17, device=dev)
+        rec = dec.reconstruct_p_frame(p, *ref, qp=36, device=dev)
+        got.update({f"gop{i}": t for i, t in enumerate(gop)})
+        got.update({f"frame{i}": t for i, t in enumerate(one)})
+        got.update({f"p{i}": t for i, t in enumerate(rec)})
+        for is_p in (False, True):
+            planes = dec.deblock_decoded(*rec, p, qp=36, is_p=is_p)
+            got.update({f"db{int(is_p)}{i}": t for i, t in enumerate(planes)})
+        for k, t in got.items():
+            assert t.device.type == torch.device(dev).type, k
+        outs[str(dev)] = {k: t.cpu().numpy() for k, t in got.items()}
+    for k, want in outs["cpu"].items():
+        np.testing.assert_array_equal(outs["cuda"][k], want, err_msg=k)
+
+
+def test_sprites_on_the_card(cuda, tmp_path):
+    """generate_sprites on CUDA: one kernel launch per plane per chunk,
+    tiles within the resize bound of the CPU path's, the same VTT."""
+    from pathlib import Path
+
+    from vlog_tpu_torch.media.y4m import write_y4m
+    from vlog_tpu_torch.worker import sprites
+
+    rng = np.random.default_rng(3)
+    frames = [(rng.integers(0, 256, (180, 320), dtype=np.uint8),
+               rng.integers(0, 256, (90, 160), dtype=np.uint8),
+               rng.integers(0, 256, (90, 160), dtype=np.uint8))
+              for _ in range(11)]
+    src = tmp_path / "s.y4m"
+    write_y4m(src, frames, fps_num=10, fps_den=1)
+    before = fused_resize.launches
+    card = sprites.generate_sprites(src, tmp_path / "card", interval_s=0.1,
+                                    device="cuda")
+    assert fused_resize.launches - before == 2 * 3     # chunks of 8 and 3
+    cpu = sprites.generate_sprites(src, tmp_path / "cpu", interval_s=0.1,
+                                   device="cpu")
+    assert card.tile_count == cpu.tile_count == 11
+    assert Path(card.vtt_path).read_bytes() == Path(cpu.vtt_path).read_bytes()
+    mats = {dev: sprites._tile_mats(180, 320, 90, 160, torch.device(dev))
+            for dev in ("cpu", "cuda")}
+    for dev_planes in (frames[:8], frames[8:]):
+        x = [np.stack([f[i] for f in dev_planes]) for i in range(3)]
+        got = fused_resize.resize_yuv420(
+            *(torch.as_tensor(p, device=cuda) for p in x), mats["cuda"])
+        want = fused_resize.resize_yuv420(
+            *(torch.as_tensor(p) for p in x), mats["cpu"])
+        for g, w in zip(got, want):
+            max_abs, n_diff = _diff(g.cpu(), w)
+            assert max_abs <= 1 and n_diff <= 1e-3 * w.numel()

@@ -5,9 +5,13 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field
 from pathlib import Path
+from typing import Callable
 
 from vlog_tpu_torch import config
 from vlog_tpu_torch.media.probe import VideoInfo
+
+# progress callback: (done, total, message)
+ProgressFn = Callable[[int, int, str], None]
 
 
 @dataclass(frozen=True)

@@ -1,7 +1,10 @@
-"""The PyTorch/CUDA ladder backend: a Y4M source in, an HLS tree out (port
-of the H.264 path of ``vlog_tpu/backends/jax_backend.py``).
+"""The PyTorch/CUDA ladder backend: a source in, an HLS tree out (port of
+the H.264 path of ``vlog_tpu/backends/jax_backend.py``).
 
-Per dispatch batch: host Y4M read -> device ladder program
+Sources open through ``backends/source.py::open_source``: Y4M, an MP4 in
+the first-party H.264 envelope (decoded on the backend's device), or a
+foreign file through the libav shim. Per dispatch batch: host read or
+decode -> device ladder program
 (parallel/ladder.py: the resize kernel, then I+P chains with deblocking
 and in-chain rate adaptation, or intra-only frames) -> device-to-host
 copy of int16 levels (and MVs) -> host CABAC or CAVLC (native) ->
@@ -21,8 +24,13 @@ while a controller is hunting, so both backends plan the same QPs and
 write the same journal. A CMAF run resumes from the segments on disk
 (``run(..., resume=True)``, the default): the resume point is clamped to
 a batch boundary the journal can replay, so the resumed tree equals the
-uninterrupted one, whichever of the two backends wrote its first part.
-Not ported: non-Y4M sources, HEVC, AV1.
+uninterrupted one, whichever of the two backends wrote its first part;
+a libav source (no frame-exact seek) never resumes. A dispatch whose
+real frames fill fewer chains than the batch holds (the source's tail)
+encodes only the chains that hold real frames, and a lone partial chain
+only up to its last real frame: the JAX program encodes the replicated
+padding too and drops it, so the written bytes are the same.
+Not ported: HEVC, AV1.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ from vlog_tpu_torch.backends.base import (
     plan_rung_geometry,
 )
 from vlog_tpu_torch.backends.rate_control import RateController
+from vlog_tpu_torch.backends.source import open_source
 from vlog_tpu_torch.codecs.h264.api import H264Encoder
 from vlog_tpu_torch.codecs.h264.encoder import FrameLevels
 from vlog_tpu_torch.codecs.jpeg.encoder import (JpegBlocks, pack_jpeg,
@@ -54,7 +63,7 @@ from vlog_tpu_torch.media.fmp4 import (Sample, TrackConfig, avc1_sample_entry,
                                        init_segment, media_segment)
 from vlog_tpu_torch.media.probe import VideoInfo
 from vlog_tpu_torch.media.ts import TsMuxer, TsSample
-from vlog_tpu_torch.media.y4m import Y4mReader, fps_to_fraction
+from vlog_tpu_torch.media.y4m import fps_to_fraction
 from vlog_tpu_torch.ops.colorspace import yuv420_to_rgb
 from vlog_tpu_torch.ops.fused_resize import resize_yuv420
 from vlog_tpu_torch.parallel.executor import LaggedRateControl
@@ -167,16 +176,16 @@ class TorchBackend:
             psnr_acc[rung.name] = []
             pending[rung.name] = []
 
-        reader = Y4mReader(plan.source.path)
+        src = open_source(plan.source.path, dev)
         journal = None
         try:
-            total = reader.info.frame_count
-            # resume candidate: the first segment any rung is missing (a
-            # Y4M source seeks exactly; TS restarts from 0, its continuity
-            # counters span the whole playlist)
+            total = src.frame_count
+            # resume candidate: the first segment any rung is missing (TS
+            # restarts from 0, its continuity counters span the whole
+            # playlist; a libav source seeks only to keyframes)
             start_segment = 0
             per_rung = None
-            if resume and not ts_mode:
+            if resume and not ts_mode and src.exact_seek:
                 per_rung = self._scan_resume_candidates(plan, out, init_matched)
                 start_segment = min(len(d) for d in per_rung.values())
 
@@ -380,25 +389,36 @@ class TorchBackend:
                              else (_INTRA_KEYS, consume_intra))
             frames_done = start_frame
             batch_idx = 0
-            for start in range(start_frame, total, batch_n):
+            batches = src.read_batches(batch_n, start_frame)
+            while True:
                 td = time.perf_counter()
-                n_real = min(batch_n, total - start)
-                frames = [reader.read_frame(i)
-                          for i in range(start, start + n_real)]
+                item = next(batches, None)
                 prof["decode_s"] += time.perf_counter() - td
+                if item is None:
+                    break
+                n_real = item[0].shape[0]
                 if plan.thumbnail and thumb_path is None:
                     # the first batch's first frame
                     thumb_path = str(out / THUMBNAIL_NAME)
                     tt = time.perf_counter()
-                    self._write_thumbnail(*frames[0], thumb_path)
+                    self._write_thumbnail(*(p[0] for p in item), thumb_path)
                     prof["thumbnail_s"] += time.perf_counter() - tt
                 td = time.perf_counter()
+                if chain_mode:
+                    # only the chains holding real frames; a lone chain
+                    # only up to its last real frame (at least 2)
+                    n_chains = -(-n_real // clen)
+                    lead = (n_chains, clen if n_chains > 1
+                            else max(2, n_real))
+                else:
+                    lead = (batch_n,)
+                n_disp = int(np.prod(lead))
                 # tail: replicate the last frame, dropped after encode
-                frames += [frames[-1]] * (batch_n - n_real)
-                lead = (chains_per, clen) if chain_mode else (batch_n,)
-                planes = [torch.from_numpy(np.stack([f[p] for f in frames]))
-                          .reshape(lead + frames[0][p].shape).to(dev)
-                          for p in range(3)]
+                planes = [torch.from_numpy(np.concatenate(
+                              [p, np.repeat(p[-1:], n_disp - n_real, 0)])
+                              if n_disp > n_real else p)
+                          .reshape(lead + p.shape[1:]).to(dev)
+                          for p in item]
                 prof["decode_s"] += time.perf_counter() - td
 
                 rc.apply_upto(batch_idx - depth)
@@ -409,6 +429,7 @@ class TorchBackend:
                         # the I frames take the -2 QP anchor
                         q = q.reshape(chains_per, clen)
                         q[:, 0] = np.maximum(q[:, 0] - 2, 0)
+                        q = np.ascontiguousarray(q[:lead[0], :lead[1]])
                     qps[r.name] = q
                 tc = time.perf_counter()
                 if chain_mode:
@@ -438,11 +459,14 @@ class TorchBackend:
                     write_segment(rung, pending[rung.name])
                     pending[rung.name] = []
         finally:
-            reader.close()
+            src.close()
             if journal is not None:
                 journal.close()
 
-        duration_s = total / fps if fps else 0.0
+        # an inexact (libav) source's frame count is an estimate: trust
+        # the frames actually decoded
+        true_total = total if src.exact_seek else frames_done
+        duration_s = true_total / fps if fps else 0.0
         results, variants = [], []
         for rung in plan.rungs:
             name = rung.name

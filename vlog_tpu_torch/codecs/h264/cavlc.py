@@ -1,5 +1,6 @@
-"""H.264 CAVLC slice writers (port of the slice-level half of
-``vlog_tpu/codecs/h264/cavlc.py``).
+"""H.264 CAVLC slice writers and the host state the decoder shares with
+them (port of ``vlog_tpu/codecs/h264/cavlc.py``: its slice-level half,
+the scan order, the nC rule, the inter CBP mapping and the MV predictor).
 
 The slice header is written in Python; the slice data goes through the
 native C coder (native/cavlc.c, a copy of the JAX package's), which
@@ -17,7 +18,84 @@ import ctypes
 import numpy as np
 
 from vlog_tpu_torch.codecs.h264 import syntax
+from vlog_tpu_torch.codecs.h264.cavlc_tables import ZIGZAG_4x4
 from vlog_tpu_torch.media.bitstream import BitWriter
+
+_ZZ_R = np.array([r for r, _ in ZIGZAG_4x4])
+_ZZ_C = np.array([c for _, c in ZIGZAG_4x4])
+
+
+def _nc(avail_a: bool, na: int, avail_b: bool, nb: int) -> int:
+    """Neighbour context (spec 9.2.1): nA left, nB above."""
+    if avail_a and avail_b:
+        return (na + nb + 1) >> 1
+    if avail_a:
+        return na
+    if avail_b:
+        return nb
+    return 0
+
+
+# Table 9-4 column "Inter": codeNum -> coded_block_pattern.
+_CBP_INTER_FROM_CODE = [
+    0, 16, 1, 2, 4, 8, 32, 3, 5, 10, 12, 15, 47, 7, 11, 13,
+    14, 6, 9, 31, 35, 37, 42, 44, 33, 34, 36, 40, 39, 43, 45, 46,
+    17, 18, 20, 24, 19, 21, 26, 28, 23, 27, 29, 30, 22, 25, 38, 41,
+]
+
+# 4x4 luma block coding order as (i8x8, i4x4) -> (by, bx) within the MB.
+_BLK44 = [(0, 0), (0, 1), (1, 0), (1, 1)]
+
+
+def _median3(a: int, b: int, c: int) -> int:
+    return sorted((a, b, c))[1]
+
+
+class MvPredictor:
+    """The spec's MV prediction state machine (8.4.1.3 + 8.4.1.1),
+    shared verbatim between the P-slice encoder and decoder so the two
+    can never drift. Holds reconstructed MVs in QUARTER pels, (x, y)."""
+
+    def __init__(self, mbh: int, mbw: int):
+        self.mbh = mbh
+        self.mbw = mbw
+        self.mvs = np.zeros((mbh, mbw, 2), np.int32)
+
+    def _neighbor(self, my: int, mx: int):
+        """(avail, mv) triplets for A (left), B (top), C (top-right with
+        D top-left fallback)."""
+        a_ok = mx > 0
+        b_ok = my > 0
+        c_ok = b_ok and mx < self.mbw - 1
+        d_ok = b_ok and mx > 0
+        a = self.mvs[my, mx - 1] if a_ok else np.zeros(2, np.int32)
+        b = self.mvs[my - 1, mx] if b_ok else np.zeros(2, np.int32)
+        if c_ok:
+            c_av, c = True, self.mvs[my - 1, mx + 1]
+        elif d_ok:
+            c_av, c = True, self.mvs[my - 1, mx - 1]
+        else:
+            c_av, c = False, np.zeros(2, np.int32)
+        return (a_ok, a), (b_ok, b), (c_av, c)
+
+    def mv_pred(self, my: int, mx: int) -> tuple[int, int]:
+        """Median predictor, 8.4.1.3.1 (single ref list, all-inter)."""
+        (a_ok, a), (b_ok, b), (c_ok, c) = self._neighbor(my, mx)
+        avail = [(a_ok, a), (b_ok, b), (c_ok, c)]
+        matches = [mv for ok, mv in avail if ok]
+        if len(matches) == 1:
+            return int(matches[0][0]), int(matches[0][1])
+        return (_median3(int(a[0]), int(b[0]), int(c[0])),
+                _median3(int(a[1]), int(b[1]), int(c[1])))
+
+    def skip_mv(self, my: int, mx: int) -> tuple[int, int]:
+        """P_Skip inferred MV, 8.4.1.1."""
+        (a_ok, a), (b_ok, b), _ = self._neighbor(my, mx)
+        if (not a_ok or not b_ok
+                or (a[0] == 0 and a[1] == 0)
+                or (b[0] == 0 and b[1] == 0)):
+            return 0, 0
+        return self.mv_pred(my, mx)
 
 
 def _native_cavlc(kind: str, arrays: list, mbh: int, mbw: int,

@@ -2,8 +2,9 @@
 
 Same ``VLOG_*`` names and defaults as the JAX package's config (ladder,
 GOP structure, entropy, deblocking, search radius, batch and pipeline
-depth), so one environment configures both. Only what the port's H.264
-paths (I+P or intra-only, CMAF or MPEG-TS) read is here.
+depth, sprite sheets), so one environment configures both. Only what
+the port's H.264 paths (I+P or intra-only, CMAF or MPEG-TS) and its
+sprite worker read is here.
 """
 
 from __future__ import annotations
@@ -105,3 +106,10 @@ H264_ENTROPY: str = _env_str("VLOG_H264_ENTROPY", "cabac")
 H264_DEBLOCK: bool = _env_bool("VLOG_H264_DEBLOCK", True)
 TPU_FRAME_BATCH: int = _env_int("VLOG_TPU_FRAME_BATCH", 8, lo=1, hi=256)
 PIPELINE_DEPTH: int = _env_int("VLOG_PIPELINE_DEPTH", 2, lo=1, hi=16)
+
+# Sprite sheets (worker/sprites.py), the JAX package's names and defaults.
+SPRITE_INTERVAL_S: float = _env_float("VLOG_SPRITE_INTERVAL", 10.0, lo=1.0)
+SPRITE_TILE_W: int = _env_int("VLOG_SPRITE_WIDTH", 160, lo=16)
+SPRITE_TILE_H: int = _env_int("VLOG_SPRITE_HEIGHT", 90, lo=16)
+SPRITE_GRID: int = 10  # 10x10 tiles per sheet
+SPRITE_MAX_SHEETS: int = _env_int("VLOG_SPRITE_MAX_SHEETS", 20, lo=1)

@@ -1,5 +1,5 @@
-"""MSB-first bit writer, Exp-Golomb codes and NAL emulation prevention
-(copy of the writer half of ``vlog_tpu/media/bitstream.py``)."""
+"""MSB-first bit writer and reader, Exp-Golomb codes and NAL emulation
+prevention (copy of ``vlog_tpu/media/bitstream.py``)."""
 
 from __future__ import annotations
 
@@ -62,6 +62,47 @@ class BitWriter:
         return bytes(self._bytes)
 
 
+class BitReader:
+    """MSB-first bit reader over a bytes object."""
+
+    def __init__(self, data: bytes):
+        self._data = data
+        self._pos = 0  # bit position
+
+    @property
+    def bits_remaining(self) -> int:
+        return len(self._data) * 8 - self._pos
+
+    def read_bit(self) -> int:
+        if self._pos >= len(self._data) * 8:
+            raise EOFError("bitstream exhausted")
+        byte = self._data[self._pos >> 3]
+        bit = (byte >> (7 - (self._pos & 7))) & 1
+        self._pos += 1
+        return bit
+
+    def read_bits(self, width: int) -> int:
+        v = 0
+        for _ in range(width):
+            v = (v << 1) | self.read_bit()
+        return v
+
+    def read_ue(self) -> int:
+        zeros = 0
+        while self.read_bit() == 0:
+            zeros += 1
+            if zeros > 32:
+                raise ValueError("malformed Exp-Golomb code")
+        return (1 << zeros) - 1 + (self.read_bits(zeros) if zeros else 0)
+
+    def read_se(self) -> int:
+        k = self.read_ue()
+        return (k + 1) // 2 if k % 2 == 1 else -(k // 2)
+
+    def byte_align(self) -> None:
+        self._pos = (self._pos + 7) & ~7
+
+
 def escape_emulation(rbsp: bytes) -> bytes:
     """Insert emulation-prevention bytes (0x000000/01/02/03 -> 0x000003xx).
 
@@ -84,4 +125,22 @@ def escape_emulation(rbsp: bytes) -> bytes:
             zeros = 0
         out.append(b)
         zeros = zeros + 1 if b == 0 else 0
+    return bytes(out)
+
+
+def unescape_emulation(ebsp: bytes) -> bytes:
+    """Remove emulation-prevention bytes (inverse of :func:`escape_emulation`)."""
+    out = bytearray()
+    zeros = 0
+    i = 0
+    n = len(ebsp)
+    while i < n:
+        b = ebsp[i]
+        if zeros >= 2 and b == 3 and i + 1 < n and ebsp[i + 1] <= 3:
+            zeros = 0
+            i += 1
+            continue
+        out.append(b)
+        zeros = zeros + 1 if b == 0 else 0
+        i += 1
     return bytes(out)

@@ -1,7 +1,8 @@
-"""CMAF fMP4 muxing: init segment + media segments (the subset of
-``vlog_tpu/media/fmp4.py`` the H.264 ladder writer needs).
+"""ISO-BMFF muxing: CMAF fMP4 (init segment + media segments) and
+progressive MP4 (the subset of ``vlog_tpu/media/fmp4.py`` the H.264
+ladder writer and the MP4 sources need).
 
-One track per file, fixed timescale, movie fragments with one trun.
+One track per CMAF file, fixed timescale, movie fragments with one trun.
 """
 
 from __future__ import annotations
@@ -186,3 +187,74 @@ def media_segment(
     moof[patch_at : patch_at + 4] = u32(data_offset)
     mdat = box("mdat", b"".join(s.data for s in samples))
     return styp + bytes(moof) + mdat
+
+
+# --------------------------------------------------------------------------
+# Progressive MP4 (single-track, faststart layout: moov before mdat)
+# --------------------------------------------------------------------------
+
+def progressive_mp4_multi(
+    tracks: list[tuple[TrackConfig, list[Sample]]]) -> bytes:
+    """Multi-track progressive MP4, moov-first; one chunk per track.
+
+    A/V uploads are this shape (reference fixtures: sample_videos.py's
+    hand-built atoms); also the 'original' remux container.
+    """
+    ftyp = box("ftyp", b"isom", u32(512), b"isomiso2avc1mp41")
+    movie_ts = max(t.timescale for t, _ in tracks)
+    movie_dur = max(
+        (sum(s.duration for s in ss) * movie_ts) // t.timescale
+        for t, ss in tracks)
+
+    def build_trak(track: TrackConfig, samples: list[Sample],
+                   chunk_offset: int) -> bytes:
+        n = len(samples)
+        total = sum(s.duration for s in samples)
+        stts_entries: list[tuple[int, int]] = []
+        for s in samples:
+            if stts_entries and stts_entries[-1][1] == s.duration:
+                stts_entries[-1] = (stts_entries[-1][0] + 1, s.duration)
+            else:
+                stts_entries.append((1, s.duration))
+        stts = full_box("stts", 0, 0, u32(len(stts_entries)),
+                        b"".join(u32(c) + u32(d) for c, d in stts_entries))
+        stsc = full_box("stsc", 0, 0, u32(1), u32(1) + u32(n) + u32(1))
+        stsz = full_box("stsz", 0, 0, u32(0), u32(n),
+                        b"".join(u32(len(s.data)) for s in samples))
+        sync_idx = [i for i, s in enumerate(samples) if s.is_sync]
+        stss = (full_box("stss", 0, 0, u32(len(sync_idx)),
+                         b"".join(u32(i + 1) for i in sync_idx))
+                if len(sync_idx) != n else b"")
+        stco = full_box("stco", 0, 0, u32(1), u32(chunk_offset))
+        stbl = box("stbl", full_box("stsd", 0, 0, u32(1), track.sample_entry),
+                   stts, stsc, stsz, *([stss] if stss else []), stco)
+        minf = box("minf", _media_header(track.handler), _dinf(), stbl)
+        mdia = box("mdia", _mdhd(track.timescale, total),
+                   _hdlr(track.handler, "vlog_tpu"), minf)
+        return box("trak", _tkhd(track.track_id, (total * movie_ts) // track.timescale,
+                                 track.width, track.height), mdia)
+
+    def build_moov(offsets: list[int]) -> bytes:
+        traks = [build_trak(t, ss, off)
+                 for (t, ss), off in zip(tracks, offsets)]
+        return box("moov", _mvhd(movie_ts, movie_dur), *traks)
+
+    payloads = [b"".join(s.data for s in ss) for _, ss in tracks]
+    moov_size = len(build_moov([0] * len(tracks)))
+    total_payload = sum(len(p) for p in payloads)
+    mdat_header = 16 if 8 + total_payload > 0xFFFFFFFF else 8
+    base = len(ftyp) + moov_size + mdat_header
+    offsets = []
+    pos = base
+    for p in payloads:
+        offsets.append(pos)
+        pos += len(p)
+    moov = build_moov(offsets)
+    assert len(moov) == moov_size
+    mdat = box("mdat", b"".join(payloads))
+    return ftyp + moov + mdat
+
+
+def progressive_mp4(track: TrackConfig, samples: list[Sample]) -> bytes:
+    """One-track progressive MP4, moov-first ("faststart")."""
+    return progressive_mp4_multi([(track, samples)])

@@ -1,4 +1,10 @@
-"""Native (C) host entropy coders for the port: H.264 CABAC and CAVLC
-slices, NAL emulation prevention, the JPEG scan packer."""
+"""Native (C) host code for the port: the entropy coders (H.264 CABAC
+and CAVLC slices, NAL emulation prevention, the JPEG scan packer) and the
+optional libav ingest shim."""
 
-from vlog_tpu_torch.native.build import NativeBuildError, get_lib  # noqa: F401
+from vlog_tpu_torch.native.build import (  # noqa: F401
+    NativeBuildError,
+    VtAvInfo,
+    get_av_lib,
+    get_lib,
+)

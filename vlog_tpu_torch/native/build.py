@@ -11,6 +11,11 @@ table headers are committed as generated by
 The library is compiled with the system C++ compiler into the package's
 ignored ``_build/`` directory at first use. A failed build raises: there
 is no Python fallback coder in the port.
+
+The libav ingest shim (``avshim.c``, a copy of the JAX package's) is a
+second, optional library: it links the system libavformat, libavcodec,
+libavutil and libswscale, and ``get_av_lib`` returns None where they are
+missing or ``VLOG_LIBAV=0`` disables it, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -96,3 +101,70 @@ def get_lib() -> ctypes.CDLL:
             ]
         _LIB = lib
         return _LIB
+
+
+class VtAvInfo(ctypes.Structure):
+    _fields_ = [
+        ("width", ctypes.c_int),
+        ("height", ctypes.c_int),
+        ("fps", ctypes.c_double),
+        ("duration", ctypes.c_double),
+        ("nb_frames", ctypes.c_int64),
+        ("has_audio", ctypes.c_int),
+        ("vcodec", ctypes.c_char * 32),
+        ("acodec", ctypes.c_char * 32),
+    ]
+
+
+_AV_LIB: ctypes.CDLL | None = None
+_AV_TRIED = False
+
+
+def _compile_av() -> Path:
+    _BUILD.mkdir(parents=True, exist_ok=True)
+    src = _DIR / "avshim.c"
+    so = _BUILD / "libvt_av.so"
+    if so.exists() and so.stat().st_mtime >= src.stat().st_mtime:
+        return so
+    tmp = _BUILD / f"libvt_av.{os.getpid()}.so.tmp"
+    cc = os.environ.get("CC", "gcc")
+    cmd = [cc, "-O2", "-fPIC", "-shared", str(src), "-o", str(tmp),
+           "-lavformat", "-lavcodec", "-lavutil", "-lswscale"]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    except OSError as exc:
+        raise NativeBuildError(f"cannot run {cc!r}: {exc}") from exc
+    if proc.returncode != 0:
+        raise NativeBuildError(f"avshim build failed: {proc.stderr[:1000]}")
+    os.replace(tmp, so)
+    return so
+
+
+def get_av_lib() -> ctypes.CDLL | None:
+    """The loaded libav ingest shim, or None (unavailable or disabled)."""
+    global _AV_LIB, _AV_TRIED
+    if os.environ.get("VLOG_LIBAV", "1") in ("0", "false", "no"):
+        return None
+    with _LOCK:
+        if _AV_TRIED:
+            return _AV_LIB
+        _AV_TRIED = True
+        try:
+            lib = ctypes.CDLL(str(_compile_av()))
+        except (NativeBuildError, OSError):
+            return None
+        u8 = ctypes.POINTER(ctypes.c_uint8)
+        lib.vt_av_open.restype = ctypes.c_void_p
+        lib.vt_av_open.argtypes = [ctypes.c_char_p, ctypes.POINTER(VtAvInfo)]
+        lib.vt_av_read.restype = ctypes.c_int64
+        lib.vt_av_read.argtypes = [ctypes.c_void_p, u8, ctypes.c_int64]
+        lib.vt_av_read_pts.restype = ctypes.c_int64
+        lib.vt_av_read_pts.argtypes = [ctypes.c_void_p, u8,
+                                       ctypes.POINTER(ctypes.c_double),
+                                       ctypes.c_int64]
+        lib.vt_av_seek.restype = ctypes.c_int
+        lib.vt_av_seek.argtypes = [ctypes.c_void_p, ctypes.c_double]
+        lib.vt_av_close.restype = None
+        lib.vt_av_close.argtypes = [ctypes.c_void_p]
+        _AV_LIB = lib
+        return _AV_LIB
