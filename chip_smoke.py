@@ -10,7 +10,7 @@ Phases (any failure exits non-zero; none is caught):
    builds started together, timed;
 3. the kernel against its plain PyTorch version on the card at every
    rung shape of the 1080p ladder (Y and chroma) and at every frame
-   count a backend phase calls it with (24, 8, 6 and 1), and at the
+   count a backend phase calls it with (24, 8, 6, 4 and 1), and at the
    sprite tiles' shapes (160x90, chroma 80x45) at the counts the sprite
    phase calls with (8 and 2): max abs diff, differing pixels; at 24
    frames (sprite tiles: 8), for the kernel, the plain version and
@@ -37,31 +37,47 @@ Phases (any failure exits non-zero; none is caught):
    coefficients' bound;
 6. intra: the same source, ``gop_mode="intra"``, 8 frames (one
    dispatch), default ladder: 9 launches, the tree parses, PSNR floor;
-7. mp4: the first 8 samples of the slice's 1080p rung (1 IDR + 7 P,
+7. mp4: the first 4 samples of the slice's 1080p rung (1 IDR + 3 P,
    CABAC, deblocked, its rate control's QPs), taken from its CMAF
    segment with the avcC of its init segment and written as a
    progressive MP4 by the port's writer, through
    ``TorchBackend(device="cuda").plan/run`` with the defaults: the
    decoder reconstructs and deblocks on the card; 12 launches (9 + 3
-   for the thumbnail), the tree parses, 8 samples per rung; the run's
+   for the thumbnail), the tree parses, 4 samples per rung; the run's
    frames 0-1 bit-identical to the port's CPU decode of the same
-   samples; frame 5 read on a fresh source equal to the run's frame 5
+   samples; frame 3 read on a fresh source equal to the run's frame 3
    (a read that starts mid-GOP); ``decode_s`` split into the host
    parse, the reconstruction and the deblocking filter;
 8. sprites: ``generate_sprites(device="cuda")`` on an all-intra 1080p MP4
-   made the same way from the intra phase's 1080p rung, sampling every
-   frame (one chunk of 8 tiles), and on the I+P MP4 sampling frames 0
-   and 4 (a chunk of 2; the second read continues from frame 1, no
-   restart at the IDR): sheet size, VTT cues, 3 launches each, each
-   call's tiles held to the plain version, the I+P run's sampled frames
-   equal to the mp4 run's;
+   made the same way from the intra phase's 1080p rung (8 samples),
+   sampling every frame (one chunk of 8 tiles), and on the I+P MP4
+   sampling frames 0 and 2 (a chunk of 2; the second read continues
+   from frame 1, no restart at the IDR): sheet size, VTT cues, 3
+   launches each, each call's tiles held to the plain version, the I+P
+   run's sampled frames equal to the mp4 run's;
 9. resume: the same source, the 360p rung, 12 frames, 0.25 s segments
    and one 6-frame chain per dispatch (two dispatches): an uninterrupted
    run, and a run stopped after dispatch 1 by its ``progress_cb`` and
    then resumed; the two trees must be identical, journal included;
 10. MPEG-TS: the same source and rung, 6 frames (one 0.25 s segment),
    ``hls_ts``: whole 188-byte packets, one video PES per frame;
-11. where one 1080p frame's device time goes, stage by stage.
+11. asr: Whisper at whisper-small width (seeded random weights, a
+   synthetic vocabulary at whisper-small's special-token ids, written as
+   a checkpoint directory) on a seeded 100 s WAV of voiced-like bursts
+   whose last window is silent, through
+   ``transcribe_video(wav, out, model_dir=..., device="cuda")`` with the
+   defaults (language detection, beam 5, the engine's 8-window
+   buckets): ``captions.vtt`` parses, 4 windows, 3 live, one batch of 3
+   windows in 4 rows, no resize launch, TF32 off; then on one window the
+   card against the port's CPU path (mel, encoder states, teacher-forced
+   logits within stated bounds; the CPU stepped along the card's greedy
+   tokens: the first differing step and the largest logit gap, bounded),
+   the window decoded solo and packed in an 8-window batch on the card
+   (greedy and beam 5: identical tokens), int8 greedy card against CPU,
+   and the times (mel, encoder, decoder step greedy and beam, the beam's
+   bookkeeping, windows/s, tokens/s, audio seconds per wall second,
+   launches and device-busy share of one beam step, the memory peak);
+12. where one 1080p frame's device time goes, stage by stage.
 
 Each phase prints its wall seconds. Prints a ``{"kernels": [...]}``
 line, the card's name and power limit, then as the last line
@@ -106,8 +122,9 @@ THUMB_MAX_BLOCK_SHARE = 1e-3
 SRC_H, SRC_W = 1080, 1920
 FRAMES = 24             # one full 24-frame I+P chain: one dispatch
 INTRA_FRAMES = 8        # one intra dispatch (frame_batch 8)
-MP4_FRAMES = 8          # samples of the MP4 sources (a cut 8-frame chain)
-SEEK_FRAME = 5          # read mid-GOP on a fresh source
+MP4_FRAMES = 4          # samples of the I+P MP4 (1 IDR + 3 P: a cut chain)
+SEEK_FRAME = 3          # read mid-GOP on a fresh source
+SPRITE_INTRA_FRAMES = 8  # samples of the all-intra MP4 (one decode chunk)
 SHORT_SEG_S = 0.25      # resume and TS: 6-frame segments and chains,
 SHORT_BATCH = 6         # one chain per dispatch
 RESUME_FRAMES = 12      # two dispatches of one 0.25 s segment each
@@ -118,18 +135,18 @@ CLOCKS_QUERY = ("--query-gpu=clocks.sm,clocks.mem,clocks.max.sm,"
                 "temperature.gpu,power.draw")
 RUNG_SHAPES = ((720, 1280), (480, 854), (360, 640))
 # Frames per kernel call on the driven paths: a 24-frame chain (slice),
-# an intra dispatch and the MP4's cut 8-frame chain, a 6-frame chain
-# (resume, ts), the thumbnail's one frame (the 720p rung's shapes). The
+# an intra dispatch, a 6-frame chain (resume, ts), the MP4's cut 4-frame
+# chain, the thumbnail's one frame (the 720p rung's shapes). The
 # kernel phase holds the kernel to its plain version at each; every
 # backend phase checks that its plan calls with one.
-COMPARE_N = (FRAMES, INTRA_FRAMES, SHORT_BATCH, 1)
+COMPARE_N = (FRAMES, INTRA_FRAMES, SHORT_BATCH, MP4_FRAMES, 1)
 # Sprite tiles (the default 160x90) of the 1080p sources, at the frames
 # per call of the sprite phase's two runs: a full decode chunk of 8 and
 # the skipping run's 2 tiles.
 SPRITE_SHAPES = (((SRC_H, SRC_W), (90, 160)),
                  ((SRC_H // 2, SRC_W // 2), (45, 80)))
 SPRITE_N = (8, 2)
-SPRITE_SKIP_INTERVAL_S = 4 / 24     # tiles at frames 0 and 4 of 8
+SPRITE_SKIP_INTERVAL_S = 2 / 24     # tiles at frames 0 and 2 of 4
 
 
 def log(msg: str) -> None:
@@ -815,13 +832,13 @@ def phase_mp4(work: Path) -> tuple[int, Path, tuple]:
 
 def phase_sprites(work: Path, ip_path: Path, seq: tuple) -> int:
     """generate_sprites on the card: every frame of an all-intra MP4, and
-    frames 0 and 4 of the I+P MP4 (a forward read)."""
+    frames 0 and 2 of the I+P MP4 (a forward read)."""
     from vlog_tpu_torch.backends import source as source_mod
     from vlog_tpu_torch.ops import fused_resize
     from vlog_tpu_torch.ops.resize import apply_resize_matrices, resize_yuv420_with
     from vlog_tpu_torch.worker import sprites
 
-    intra = _cmaf_to_mp4(work / "intra" / "1080p", MP4_FRAMES,
+    intra = _cmaf_to_mp4(work / "intra" / "1080p", SPRITE_INTRA_FRAMES,
                          work / "intra_1080p.mp4")
     calls, opened = [], []
 
@@ -835,7 +852,7 @@ def phase_sprites(work: Path, ip_path: Path, seq: tuple) -> int:
         return opened[-1]
 
     runs = (("intra, every frame", intra, 1 / 24, 8, None),
-            ("I+P, frames 0 and 4", ip_path, SPRITE_SKIP_INTERVAL_S, 2, (0, 4)))
+            ("I+P, frames 0 and 2", ip_path, SPRITE_SKIP_INTERVAL_S, 2, (0, 2)))
     total = 0
     sprites.resize_yuv420, sprites.open_source = spy_resize, spy_open
     try:
@@ -869,7 +886,7 @@ def phase_sprites(work: Path, ip_path: Path, seq: tuple) -> int:
             decoded = opened[0].frames_decoded
             if frames is not None:
                 # the sampled frames are the sequential decode's, read
-                # forward: frames 0..4 decoded once each
+                # forward: frames 0..2 decoded once each
                 got = tuple(p.cpu().numpy() for p in calls[0][0])
                 _frames_equal(tuple(p[list(frames)] for p in seq), got,
                               f"sprites ({name}) sampled frames")
@@ -984,6 +1001,313 @@ def phase_ts(src: Path) -> int:
     return launches
 
 
+
+# ---------------------------------------------------------------------------
+# ASR: Whisper at whisper-small width (random weights from ASR_SEED, a
+# synthetic byte-level vocabulary at whisper-small's special-token ids)
+ASR_SEED = 5
+ASR_AUDIO_S = 100.0      # windows at 0, 25, 50, 75 s; the last all silent
+ASR_SPEECH_END_S = 74.0
+ASR_WINDOWS, ASR_LIVE = 4, 3
+ASR_PACK_ROWS = 8        # the engine's default bucket (VLOG_ASR_BATCH_WINDOWS)
+ASR_PACK_AT = 3          # the solo window's row in the packed batch
+# Card against the port's CPU path on one window, float32 on both with
+# TF32 off: the sums run in other orders, nothing else differs. Mel
+# features lie in about [-1, 2], encoder states in [-10, 10], logits in
+# [-1, 1].
+ASR_MEL_MAX_ABS = 1e-3
+ASR_ENC_MAX_ABS = 1e-3
+ASR_LOGIT_MAX_ABS = 1e-3
+# A card greedy token's CPU logit (rules applied, the CPU stepped along
+# the card's tokens) may trail the CPU's best by at most this: twice the
+# logit bound, the most two logits within it can swap by.
+ASR_TOKEN_GAP_MAX = 2 * ASR_LOGIT_MAX_ABS
+ASR_TIMED_STEPS = 20
+_VTT_CUE = r"^\d\d:\d\d:\d\d\.\d{3} --> \d\d:\d\d:\d\d\.\d{3}$"
+
+
+def _asr_audio(seed: int) -> np.ndarray:
+    """ASR_AUDIO_S of 16 kHz mono: voiced-like bursts (a gliding 100-220
+    Hz fundamental with 8 harmonics, 0.15-0.3 s each, 0.05-0.2 s apart: a
+    syllable rate of 3-5 per second) over a quiet noise bed up to
+    ASR_SPEECH_END_S, then digital silence (the last window is silent)."""
+    sr = 16000
+    rng = np.random.default_rng(seed)
+    x = np.zeros(int(ASR_AUDIO_S * sr))
+    end = int(ASR_SPEECH_END_S * sr)
+    x[:end] = rng.normal(0.0, 1e-3, end)
+    pos = 0.2
+    while pos < ASR_SPEECH_END_S - 0.5:
+        dur, f0 = rng.uniform(0.15, 0.3), rng.uniform(100.0, 220.0)
+        i0 = int(pos * sr)
+        tt = np.arange(int(dur * sr)) / sr
+        phase = 2 * np.pi * np.cumsum(f0 * (1 + 0.1 * tt / dur)) / sr
+        burst = sum(np.sin(h * phase) / h for h in range(1, 9))
+        x[i0:i0 + tt.size] += 0.2 * np.sin(np.pi * tt / dur) ** 2 * burst
+        pos += dur + rng.uniform(0.05, 0.2)
+    return x
+
+
+def _check_vtt(path: Path, cues: int) -> None:
+    import re
+
+    lines = path.read_text().split("\n")
+    if lines[0] != "WEBVTT":
+        fail(f"{path.name}: no WEBVTT header")
+    timing = [i for i, ln in enumerate(lines) if "-->" in ln]
+    for i in timing:
+        if not re.match(_VTT_CUE, lines[i]) or not lines[i + 1].strip():
+            fail(f"{path.name}: malformed cue at line {i + 1}: {lines[i]!r}")
+    if len(timing) != cues:
+        fail(f"{path.name}: {len(timing)} cues, the result says {cues}")
+
+
+def _forced_greedy(assets, mel, language: str, forced) -> tuple:
+    """The CPU path stepped along the card's greedy tokens (rules
+    applied as generation applies them): the first step whose CPU argmax
+    is another token (None if none), and the largest gap between the
+    CPU's best processed logit and its logit for the card's token."""
+    from vlog_tpu_torch.asr import decode as dec
+    from vlog_tpu_torch.asr import model as wm
+
+    st, cfg, model = assets.tokens, assets.cfg, assets.model
+    prompt = [st.sot, st.language_token(language), st.transcribe]
+    sup = torch.as_tensor(dec._suppress_vector(
+        cfg.vocab_size, st.suppress + (st.no_timestamps,)))
+    bsup = torch.as_tensor(dec._suppress_vector(cfg.vocab_size,
+                                                st.begin_suppress))
+    one = lambda t: torch.tensor([t])           # noqa: E731
+    first, worst, steps = None, 0.0, 0
+    with torch.inference_mode():
+        ckv = wm.cross_kv(model, wm.encode(model, mel))
+        cache = wm.DecoderCache.create(cfg, 1, len(prompt) + len(forced),
+                                       "cpu")
+        for i, t in enumerate(prompt):
+            logits = wm.decoder_step(model, one(t), i, cache, ckv)
+        last, penult, last_ts = prompt[-1], prompt[-2], st.timestamp_begin - 1
+        for step, tok in enumerate(int(t) for t in forced):
+            lg = logits + sup + (bsup if step == 0 else 0.0)
+            lg = dec.apply_timestamp_rules(
+                lg, one(last), one(penult), one(last_ts), step,
+                ts_begin=st.timestamp_begin, eot=st.eot)[0]
+            best = int(torch.argmax(lg))
+            worst = max(worst, float(lg[best] - lg[tok]))
+            if best != tok and first is None:
+                first = step
+            steps += 1
+            if tok == st.eot:
+                break
+            if tok >= st.timestamp_begin:
+                last_ts = tok
+            penult, last = last, tok
+            logits = wm.decoder_step(model, one(tok), len(prompt) + step,
+                                     cache, ckv)
+    return first, worst, steps
+
+
+def phase_asr(work: Path) -> dict:
+    """transcribe_video on the card at whisper-small width, then the card
+    against the CPU path, solo against packed, int8, and the times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vlog_tpu_torch import config
+    from vlog_tpu_torch.asr import decode as dec
+    from vlog_tpu_torch.asr import engine as engine_mod
+    from vlog_tpu_torch.asr import load
+    from vlog_tpu_torch.asr import mel as melmod
+    from vlog_tpu_torch.asr import model as wm
+    from vlog_tpu_torch.asr.synthetic import WHISPER_SMALL, write_checkpoint
+    from vlog_tpu_torch.media.audio import AudioData, read_wav, write_wav
+    from vlog_tpu_torch.ops import fused_resize
+    from vlog_tpu_torch.worker.transcribe import _cut_windows, transcribe_video
+
+    out: dict = {}
+    t0 = time.perf_counter()
+    ckpt = write_checkpoint(work / "whisper-small", WHISPER_SMALL,
+                            seed=ASR_SEED)
+    wav = work / "speech.wav"
+    write_wav(wav, AudioData(pcm=_asr_audio(ASR_SEED)[None],
+                             sample_rate=16000))
+    out["write_s"] = round(time.perf_counter() - t0, 2)
+
+    # -- the main path: transcribe_video with the defaults ----------------
+    engine_mod.reset_engine()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = engine_mod.get_engine(str(ckpt), device="cuda")
+    out["load_s"] = round(time.perf_counter() - t0, 2)
+    stats: dict = {}
+    fused_resize.launches = 0
+    t0 = time.perf_counter()
+    res = transcribe_video(wav, work / "asr_out", model_dir=str(ckpt),
+                           device="cuda", stats_out=stats)
+    wall = time.perf_counter() - t0
+    if fused_resize.launches:
+        fail(f"asr: {fused_resize.launches} resize launches")
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        fail("asr: TF32 is on")
+    if eng.assets.model.device.type != "cuda" or engine_mod.peek_engine() is not eng:
+        fail("asr: the main path did not run on the card's engine")
+    _check_vtt(Path(res.vtt_path), res.cue_count)
+    log_ = eng.batch_log
+    want = {"windows_total": ASR_WINDOWS, "windows_live": ASR_LIVE,
+            "windows_submitted": ASR_LIVE}
+    if any(stats.get(k) != v for k, v in want.items()) \
+            or [(b["n"], b["rows"]) for b in log_] != [(ASR_LIVE, 4)]:
+        fail(f"asr: windows {stats}, batches {log_}; want {want} and one "
+             f"batch of {ASR_LIVE} windows in 4 rows")
+    lang = res.language
+    out.update(language=lang, cues=res.cue_count, wall_s=round(wall, 3),
+               batch_s=round(log_[0]["elapsed_s"], 3), beam=config.WHISPER_BEAM,
+               rows=log_[0]["rows"],
+               audio_s_per_wall_s=round(ASR_AUDIO_S / wall, 3),
+               windows_per_s=round(ASR_LIVE / log_[0]["elapsed_s"], 3))
+    log(f"asr main path: {json.dumps(out)}; windows {json.dumps(stats)}")
+
+    # -- the card against the CPU path, one window at full width ----------
+    assets = eng.assets
+    samples = read_wav(wav).pcm[0].astype(np.float32)   # what the path read
+    windows = _cut_windows(samples, window_s=30.0, overlap_s=5.0)
+    win = [melmod.pad_or_trim(w.astype(np.float32)) for _, w in windows]
+    t0 = time.perf_counter()
+    cpu = load.load_whisper(ckpt, device="cpu")
+    mel_card = melmod.log_mel_spectrogram(win[0][None], device="cuda")
+    mel_cpu = melmod.log_mel_spectrogram(win[0][None], device="cpu")
+    enc_card = wm.encode(assets.model, mel_card)
+    enc_cpu = wm.encode(cpu.model, mel_cpu)
+    toks, _ = dec.generate_batch(assets, mel_card, language=lang, beam=1)
+    st = assets.tokens
+    gen = [int(t) for t in toks[0]]
+    gen = gen[:gen.index(st.eot) + 1] if st.eot in gen else gen
+    forced = [st.sot, st.language_token(lang), st.transcribe] + gen[:64]
+    ids = torch.tensor([forced])
+    logit_card = wm.decode_logits(assets.model, ids.cuda(), enc_card)
+    logit_cpu = wm.decode_logits(cpu.model, ids, enc_cpu)
+    first, gap, steps = _forced_greedy(cpu, mel_cpu, lang, toks[0])
+    diffs = {"mel": float((mel_card.cpu() - mel_cpu).abs().max()),
+             "encoder": float((enc_card.cpu() - enc_cpu).abs().max()),
+             "logits": float((logit_card.cpu() - logit_cpu).abs().max())}
+    card_vs_cpu = {"max_abs": diffs, "greedy_tokens": len(gen),
+                   "first_differing_step": first, "max_token_gap": gap,
+                   "steps_checked": steps,
+                   "seconds": round(time.perf_counter() - t0, 2)}
+    log("asr card vs CPU (one window): " + json.dumps(card_vs_cpu))
+    for name, bound in (("mel", ASR_MEL_MAX_ABS), ("encoder", ASR_ENC_MAX_ABS),
+                        ("logits", ASR_LOGIT_MAX_ABS)):
+        if not diffs[name] <= bound:
+            fail(f"asr: {name} differs from the CPU path by {diffs[name]} "
+                 f"> {bound}")
+    if not gap <= ASR_TOKEN_GAP_MAX:
+        fail(f"asr: a card greedy token trails the CPU's best by {gap} > "
+             f"{ASR_TOKEN_GAP_MAX}")
+    out["card_vs_cpu"] = card_vs_cpu
+
+    # -- solo against packed on the card ----------------------------------
+    rows = [win[0]] + [melmod.pad_or_trim(
+        samples[int(s * 16000):])
+        for s in (7.0, 13.0, 19.0, 31.0, 37.0, 43.0, 49.0)]
+    rows.insert(ASR_PACK_AT, rows.pop(0))
+    mel8 = melmod.log_mel_spectrogram(np.stack(rows), device="cuda")
+    packing = {}
+    for beam in (1, config.WHISPER_BEAM):
+        solo, _ = dec.generate_batch(assets, mel_card, language=lang, beam=beam)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        packed, _ = dec.generate_batch(assets, mel8, language=lang, beam=beam)
+        el = time.perf_counter() - t0
+        n_tok = int(sum((r != st.eot).sum() for r in packed))
+        same = bool(np.array_equal(solo[0], packed[ASR_PACK_AT]))
+        diff_at = None if same else int(np.argmax(solo[0] != packed[ASR_PACK_AT]))
+        packing[f"beam{beam}"] = {
+            "identical": same, "first_differing_step": diff_at,
+            "packed_s": round(el, 3), "tokens": n_tok,
+            "tokens_per_s": round(n_tok / el, 1),
+            "windows_per_s": round(ASR_PACK_ROWS / el, 3),
+            "max_memory_allocated_gb": round(
+                torch.cuda.max_memory_allocated() / 1e9, 3)}
+    log("asr solo vs packed (8 windows) on the card: " + json.dumps(packing))
+    bad = [k for k, v in packing.items() if not v["identical"]]
+    if bad:
+        fail(f"asr: solo and packed tokens differ on the card ({bad})")
+    out["packing"] = packing
+
+    # -- int8 (VLOG_WHISPER_QUANT=int8), one window greedy ----------------
+    saved = config.WHISPER_QUANT
+    config.WHISPER_QUANT = "int8"
+    try:
+        t0 = time.perf_counter()
+        q_card = load.load_whisper(ckpt, device="cuda")
+        q_cpu = load.load_whisper(ckpt, device="cpu")
+    finally:
+        config.WHISPER_QUANT = saved
+    qtoks, _ = dec.generate_batch(q_card, mel_card, language=lang, beam=1)
+    q_first, q_gap, q_steps = _forced_greedy(q_cpu, mel_cpu, lang, qtoks[0])
+    int8 = {"first_differing_step": q_first, "max_token_gap": q_gap,
+            "steps_checked": q_steps,
+            "seconds": round(time.perf_counter() - t0, 2)}
+    log("asr int8 card vs CPU (one window greedy): " + json.dumps(int8))
+    if not q_gap <= ASR_TOKEN_GAP_MAX:
+        fail(f"asr int8: a card greedy token trails the CPU's best by "
+             f"{q_gap} > {ASR_TOKEN_GAP_MAX}")
+    out["int8"] = int8
+    del q_card, q_cpu, cpu
+    load.invalidate()
+
+    # -- times: mel, encoder, decoder step; launches per step ----------
+    model = assets.model
+    mel_ms = call_ms(lambda: melmod.log_mel_spectrogram(np.stack(rows),
+                                                        device="cuda"), 3)
+    enc8 = wm.encode(model, mel8)
+    enc_ms = call_ms(lambda: wm.encode(model, mel8), 3)
+    ckv8 = wm.cross_kv(model, enc8)
+    step = {}
+    for name, k in (("greedy", 1), ("beam", config.WHISPER_BEAM)):
+        ckv = [(a.repeat_interleave(k, 0), b.repeat_interleave(k, 0))
+               for a, b in ckv8] if k > 1 else ckv8
+        n = ASR_PACK_ROWS * k
+        cache = wm.DecoderCache.create(model.cfg, n, 227, "cuda")
+        tok = torch.full((n,), st.sot, dtype=torch.int64, device="cuda")
+        fn = lambda: wm.decoder_step(model, tok, 100, cache, ckv)   # noqa: E731
+        step[name] = {"rows": n, "ms": round(call_ms(fn, ASR_TIMED_STEPS), 4)}
+    # the beam's bookkeeping per step at 8 windows: rules, log-softmax, the
+    # stable top-k, the cache gather
+    n = ASR_PACK_ROWS * config.WHISPER_BEAM
+    lg = torch.randn(n, model.cfg.vocab_size, device="cuda")
+    ar = torch.zeros(n, dtype=torch.int64, device="cuda")
+
+    def bookkeeping():
+        x = dec.apply_timestamp_rules(lg, ar, ar, ar, 5,
+                                      ts_begin=st.timestamp_begin, eot=st.eot)
+        x = torch.log_softmax(x, -1).reshape(ASR_PACK_ROWS, -1)
+        _, i = dec.top_k_lower_index_first(x, config.WHISPER_BEAM)
+        g = i.reshape(-1) // model.cfg.vocab_size
+        return cache.k[:, g], cache.v[:, g]
+
+    step["beam_bookkeeping_ms"] = round(call_ms(bookkeeping, ASR_TIMED_STEPS), 4)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        step_wall = time.perf_counter() - t0
+    kernels = _raw_kernels(prof)
+    busy = sum(us for _, us in kernels) / 1e6
+    times = {"mel_ms_8_windows": round(mel_ms, 3),
+             "encoder_ms_8_windows": round(enc_ms, 3),
+             "decoder_step": step,
+             "beam_step_profile": {
+                 "launches": len(kernels), "device_busy_ms": round(busy * 1e3, 4),
+                 "wall_ms": round(step_wall * 1e3, 4),
+                 "busy_share": round(busy / step_wall, 4) if kernels else None}}
+    log("asr times (8 windows): " + json.dumps(times))
+    out["times"] = times
+    engine_mod.reset_engine()
+    load.invalidate()
+    dec.kv_pool.reset()
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available; nothing was run")
@@ -1023,6 +1347,8 @@ def main() -> int:
     launches["sprites"] = timed("sprites", phase_sprites, work, ip_path, seq)
     launches["resume"] = timed("resume", phase_resume, sources[RESUME_FRAMES])
     launches["ts"] = timed("ts", phase_ts, sources[TS_FRAMES])
+    timed("asr", phase_asr, work)       # fails on any resize launch
+    launches["asr"] = 0
     shutil.rmtree(work, ignore_errors=True)
     timed("breakdown", phase_breakdown)
     log("launches by phase " + json.dumps(launches))
@@ -1032,7 +1358,8 @@ def main() -> int:
         "name": "fused_resize_plane", "route": "cuda",
         "source": "vlog_tpu_torch/csrc/fused_resize.cu",
         "replaces": "vlog_tpu/ops/pallas_ladder.py:101",
-        "launches": sum(launches.values()), "max_abs_err": kern["max_abs_err"],
+        "launches": sum(launches.values()), "launches_by_phase": launches,
+        "max_abs_err": kern["max_abs_err"],
         "ms": kern["ms"], "call_ms": kern["call_ms"],
         "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],

@@ -277,3 +277,80 @@ def test_sprites_on_the_card(cuda, tmp_path):
         for g, w in zip(got, want):
             max_abs, n_diff = _diff(g.cpu(), w)
             assert max_abs <= 1 and n_diff <= 1e-3 * w.numel()
+
+
+# --------------------------------------------------------------------------
+# Whisper (asr/) on the card against the CPU path, tiny widths
+# --------------------------------------------------------------------------
+
+# float32 on both sides, TF32 off: sums in other orders only. Bounds on
+# mel features (about [-1, 2]), encoder states and logits relative to
+# their largest magnitude; tokens must be equal.
+_ASR_MEL_MAX_ABS = 1e-4
+_ASR_RTOL = 1e-4
+
+
+@pytest.fixture(scope="module")
+def whisper_dir(tmp_path_factory):
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from vlog_tpu_torch.asr.model import WhisperConfig
+    from vlog_tpu_torch.asr.synthetic import write_checkpoint
+
+    cfg = WhisperConfig(d_model=64, encoder_layers=2, decoder_layers=2,
+                        encoder_attention_heads=2, decoder_attention_heads=2,
+                        encoder_ffn_dim=128, decoder_ffn_dim=128,
+                        vocab_size=51865, max_target_positions=64)
+    return write_checkpoint(tmp_path_factory.mktemp("whisper"), cfg, seed=3)
+
+
+def _asr_windows(n: int) -> np.ndarray:
+    rng = np.random.default_rng(7)
+    t = np.arange(16000 * 10) / 16000
+    out = np.zeros((n, 480000), np.float32)
+    for i in range(n):
+        out[i, :t.size] = (0.3 * np.sin(2 * np.pi * (150 + 40 * i) * t)
+                           * (1 + np.sin(2 * np.pi * 3 * t))
+                           + rng.normal(0, 0.02, t.size))
+    return out
+
+
+def test_whisper_card_matches_cpu(cuda, whisper_dir):
+    from vlog_tpu_torch.asr import decode, load, mel, model
+
+    audio = _asr_windows(2)
+    cpu = load.load_whisper(whisper_dir, device="cpu")
+    card = load.load_whisper(whisper_dir, device="cuda")
+    assert not torch.backends.cuda.matmul.allow_tf32
+    assert not torch.backends.cudnn.allow_tf32
+    m_cpu = mel.log_mel_spectrogram(audio, device="cpu")
+    m_card = mel.log_mel_spectrogram(audio, device="cuda")
+    assert (m_card.cpu() - m_cpu).abs().max() <= _ASR_MEL_MAX_ABS
+    e_cpu = model.encode(cpu.model, m_cpu)
+    e_card = model.encode(card.model, m_card)
+    assert (e_card.cpu() - e_cpu).abs().max() <= _ASR_RTOL * e_cpu.abs().max()
+    toks = torch.tensor([[50258, 50259, 50359, 11, 500, 50364, 50400]] * 2)
+    l_cpu = model.decode_logits(cpu.model, toks, e_cpu)
+    l_card = model.decode_logits(card.model, toks.cuda(), e_card)
+    assert (l_card.cpu() - l_cpu).abs().max() <= _ASR_RTOL * l_cpu.abs().max()
+    for beam in (1, 5):
+        want, _ = decode.generate_batch(cpu, m_cpu, beam=beam)
+        got, _ = decode.generate_batch(card, m_card, beam=beam)
+        np.testing.assert_array_equal(got, want, err_msg=f"beam {beam}")
+    assert decode.detect_language(card, m_card) == \
+        decode.detect_language(cpu, m_cpu)
+
+
+def test_whisper_solo_and_packed_tokens_identical_on_the_card(cuda,
+                                                             whisper_dir):
+    from vlog_tpu_torch.asr import decode, load, mel
+
+    card = load.load_whisper(whisper_dir, device="cuda")
+    feats = mel.log_mel_spectrogram(_asr_windows(8), device="cuda")
+    for beam in (1, 5):
+        packed, _ = decode.generate_batch(card, feats, beam=beam)
+        for row in (0, 5):
+            solo, _ = decode.generate_batch(card, feats[row:row + 1],
+                                            beam=beam)
+            np.testing.assert_array_equal(solo[0], packed[row],
+                                          err_msg=f"beam {beam} row {row}")

@@ -2,9 +2,9 @@
 
 Same ``VLOG_*`` names and defaults as the JAX package's config (ladder,
 GOP structure, entropy, deblocking, search radius, batch and pipeline
-depth, sprite sheets), so one environment configures both. Only what
-the port's H.264 paths (I+P or intra-only, CMAF or MPEG-TS) and its
-sprite worker read is here.
+depth, sprite sheets, transcription), so one environment configures
+both. Only what the port's H.264 paths (I+P or intra-only, CMAF or
+MPEG-TS), its sprite worker and its transcription worker read is here.
 """
 
 from __future__ import annotations
@@ -113,3 +113,22 @@ SPRITE_TILE_W: int = _env_int("VLOG_SPRITE_WIDTH", 160, lo=16)
 SPRITE_TILE_H: int = _env_int("VLOG_SPRITE_HEIGHT", 90, lo=16)
 SPRITE_GRID: int = 10  # 10x10 tiles per sheet
 SPRITE_MAX_SHEETS: int = _env_int("VLOG_SPRITE_MAX_SHEETS", 20, lo=1)
+
+# Transcription (asr/, worker/transcribe.py), the JAX package's names,
+# defaults and bounds.
+WHISPER_MODEL: str = _env_str("VLOG_WHISPER_MODEL", "small")
+# Local HF-format weights directory (nothing is fetched).
+WHISPER_DIR: str = _env_str("VLOG_WHISPER_DIR", "")
+WHISPER_CHUNK_S: float = 30.0       # model window
+WHISPER_OVERLAP_S: float = 5.0      # chunk overlap for stitching
+# Beam width for decoding; 1 = greedy.
+WHISPER_BEAM: int = _env_int("VLOG_WHISPER_BEAM", 5, lo=1, hi=16)
+# The continuous-batching engine (asr/engine.py): widest batch per tick
+# (ticks run at power-of-two buckets up to it), the coalescing delay per
+# tick, and the window-queue bound (submits block past it).
+ASR_BATCH_WINDOWS: int = _env_int("VLOG_ASR_BATCH_WINDOWS", 8, lo=1, hi=64)
+ASR_TICK_S: float = _env_float("VLOG_ASR_TICK_S", 0.05, lo=0.0, hi=5.0)
+ASR_QUEUE_MAX: int = _env_int("VLOG_ASR_QUEUE_MAX", 256, lo=8, hi=8192)
+# Whisper weight storage: "f32", "bf16" (cast at use) or "int8"
+# (per-output-channel symmetric, dequantized at use).
+WHISPER_QUANT: str = _env_str("VLOG_WHISPER_QUANT", "f32")

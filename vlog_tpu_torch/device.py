@@ -19,3 +19,12 @@ def resolve_device(device: str | torch.device = "cuda") -> torch.device:
     if dev.type not in ("cuda", "cpu"):
         raise ValueError(f"unsupported device {str(device)!r}")
     return dev
+
+
+def strict_fp32() -> None:
+    """TF32 off for float32 matmuls and cuDNN convolutions (the package
+    sets both at import; the ASR entry points set them again, since a
+    caller may have turned them on): Whisper's float stages are held to
+    the JAX reference's float32 results."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False

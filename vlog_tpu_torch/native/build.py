@@ -166,5 +166,7 @@ def get_av_lib() -> ctypes.CDLL | None:
         lib.vt_av_seek.argtypes = [ctypes.c_void_p, ctypes.c_double]
         lib.vt_av_close.restype = None
         lib.vt_av_close.argtypes = [ctypes.c_void_p]
+        lib.vt_av_audio_to_f32.restype = ctypes.c_int64
+        lib.vt_av_audio_to_f32.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
         _AV_LIB = lib
         return _AV_LIB
