@@ -37,17 +37,26 @@ Phases (any failure exits non-zero; none is caught):
    coefficients' bound;
 6. intra: the same source, ``gop_mode="intra"``, 8 frames (one
    dispatch), default ladder: 9 launches, the tree parses, PSNR floor;
-7. mp4: the first 4 samples of the slice's 1080p rung (1 IDR + 3 P,
-   CABAC, deblocked, its rate control's QPs), taken from its CMAF
-   segment with the avcC of its init segment and written as a
-   progressive MP4 by the port's writer, through
-   ``TorchBackend(device="cuda").plan/run`` with the defaults: the
-   decoder reconstructs and deblocks on the card; 12 launches (9 + 3
-   for the thumbnail), the tree parses, 4 samples per rung; the run's
-   frames 0-1 bit-identical to the port's CPU decode of the same
-   samples; frame 3 read on a fresh source equal to the run's frame 3
-   (a read that starts mid-GOP); ``decode_s`` split into the host
-   parse, the reconstruction and the deblocking filter;
+7. pipeline: the first 4 samples of the slice's 1080p rung (1 IDR + 3
+   P, CABAC, deblocked, its rate control's QPs), taken from its CMAF
+   segment with the avcC of its init segment, with an AAC track as long
+   as the video (a seeded stereo 48 kHz signal encoded by the port's
+   ``AacEncoder`` on the card), written as a progressive MP4 by the
+   port's writer, through ``process_video(path, out,
+   backend=get_backend("torch"))`` with the defaults: probe, original,
+   the ladder (the decoder reconstructs and deblocks on the card; 12
+   launches, 9 + 3 for the thumbnail), three audio renditions (192k,
+   128k, 96k) that decode to the source track, ``master.m3u8`` with
+   EXT-X-MEDIA, ``manifest.mpd`` with the audio adaptation set,
+   ``outputs.json`` verifying the tree, one ``qualities`` row per rung,
+   the seconds of each step; the run's frames 0-1 bit-identical to the
+   port's CPU decode of the same samples; frame 3 read on a fresh
+   source equal to the run's frame 3 (a read that starts mid-GOP);
+   ``decode_s`` split into the host parse, the reconstruction and the
+   deblocking filter;
+   pipeline_ts: the same MP4, the 360p rung, ``hls_ts``: whole 188-byte
+   packets, 4 video PES, audio PES on the audio PID in every segment,
+   6 launches (3 + 3 for the thumbnail);
 8. sprites: ``generate_sprites(device="cuda")`` on an all-intra 1080p MP4
    made the same way from the intra phase's 1080p rung (8 samples),
    sampling every frame (one chunk of 8 tiles), and on the I+P MP4
@@ -61,6 +70,15 @@ Phases (any failure exits non-zero; none is caught):
    then resumed; the two trees must be identical, journal included;
 10. MPEG-TS: the same source and rung, 6 frames (one 0.25 s segment),
    ``hls_ts``: whole 188-byte packets, one video PES per frame;
+10b. aac (run right after the integer stages, sharing the kernel
+   phase's profiler timer): ``AacEncoder(device="cuda")`` against
+   ``device="cpu"`` at 128 kbps on 6 s of seeded stereo 48 kHz audio
+   (283 payloads): identical,
+   or within AAC_BYTES_RTOL of bytes and AAC_SNR_DB_TOL of SNR; the same
+   on a band-limited 1 s track (printed); the host seconds of
+   everything after the MDCT per audio second; ``forward_mdct`` alone on
+   a 30 s chunk ((2, 1408, 2048) x (2048, 1024) float32, TF32 off),
+   device ms against its bound; no resize launch;
 11. asr: Whisper at whisper-small width (seeded random weights, a
    synthetic vocabulary at whisper-small's special-token ids, written as
    a checkpoint directory) on a seeded 100 s WAV of voiced-like bursts
@@ -148,6 +166,27 @@ SPRITE_SHAPES = (((SRC_H, SRC_W), (90, 160)),
 SPRITE_N = (8, 2)
 SPRITE_SKIP_INTERVAL_S = 2 / 24     # tiles at frames 0 and 2 of 4
 
+# AAC: the MP4 sources' track, and the aac phase (one default 6 s
+# segment at 128 kbps: 283 payloads with the priming frame)
+AAC_SR = 48000
+AAC_TRACK_BPS = 128_000
+AAC_SECONDS = 6.0
+AAC_PAYLOADS = 283
+AAC_BAND_LIMITED_SECONDS = 1.0
+# Card against CPU: both MDCTs are float32 sums in other orders (cuBLAS,
+# the CPU's BLAS); the host stages after them are exact. Expected:
+# identical payloads. A coefficient that lands on a quantizer or
+# scalefactor boundary may flip a level, which rate control carries on;
+# past this bound the phase fails: total bytes within 1%, and the two
+# streams' SNRs against the source (decoded by the port's decoder)
+# within 0.1 dB.
+AAC_BYTES_RTOL = 0.01
+AAC_SNR_DB_TOL = 0.1
+# forward_mdct timed on one 30 s stereo chunk: (2, 1408, 2048) blocks
+MDCT_CHUNK = (2, 1408, 2048)
+# The pipeline's MPEG-TS run: the 360p rung of the A/V MP4
+TS_PIPELINE_RUNG = "360p"
+
 
 def log(msg: str) -> None:
     print(msg, flush=True)
@@ -215,7 +254,9 @@ class DeviceTimer:
         self._flush = {read: {name for name, _ in read(prof)}
                        for read in (_raw_kernels, _tree_kernels)}
         if not all(self._flush.values()):
-            fail("torch.profiler recorded no device kernels")
+            fail("torch.profiler recorded no device kernels (raw, "
+                 "prof.events(): "
+                 f"{[len(read(prof)) for read in self._flush]})")
         self.max_reader_gap = 0.0
 
     def flush(self) -> None:
@@ -340,11 +381,10 @@ def _shape_row(timer, plane, src, dst, n, counts, gens) -> dict:
     return row
 
 
-def phase_kernel(n: int) -> dict:
+def phase_kernel(timer: DeviceTimer, n: int) -> dict:
     dev = torch.device("cuda")
     log("clocks before kernel phase (sm, mem, max sm, temp, power): "
         + smi(CLOCKS_QUERY))
-    timer = DeviceTimer(dev)
     gens = (torch.Generator(device=dev).manual_seed(1234),
             torch.Generator(device=dev).manual_seed(4321))   # the other n
     rows = []
@@ -453,7 +493,7 @@ def phase_integer(devices=("cpu", "cuda")) -> None:
 
 def phase_breakdown() -> None:
     """Where one 1080p frame's device time goes, stage by stage (host
-    clock around one synchronized call each; the slice and mp4 phases
+    clock around one synchronized call each; the slice and pipeline phases
     ran every stage at these shapes before), and
     the launch count and device-busy share of one P frame + deblock from
     torch.profiler."""
@@ -700,37 +740,67 @@ def phase_intra(src: Path) -> int:
     return launches
 
 
+def _av_audio(seconds: float, seed: int) -> np.ndarray:
+    """Seeded stereo 48 kHz PCM: 440 / 1234.5 Hz tones plus white noise."""
+    rng = np.random.default_rng(seed)
+    t = np.arange(int(round(AAC_SR * seconds))) / AAC_SR
+    return np.stack([0.3 * np.sin(2 * np.pi * f * t)
+                     + 0.05 * rng.standard_normal(t.size)
+                     for f in (440.0, 1234.5)])
+
+
+def _segment_samples(seg: Path) -> list:
+    """The samples (data, duration, sync flag) of one fMP4 media segment,
+    from its trun and mdat."""
+    from vlog_tpu_torch.media.boxes import parse_box_tree
+    from vlog_tpu_torch.media.fmp4 import Sample
+
+    data = seg.read_bytes()
+    with open(seg, "rb") as fp:
+        moof = next(b for b in parse_box_tree(fp) if b.type == "moof")
+    trun = moof.find("traf", "trun").payload
+    pos = moof.offset + int.from_bytes(trun[8:12], "big", signed=True)
+    samples = []
+    for k in range(int.from_bytes(trun[4:8], "big")):
+        dur, size, flags = (int.from_bytes(trun[i:i + 4], "big")
+                            for i in range(12 + 16 * k, 24 + 16 * k, 4))
+        samples.append(Sample(data[pos:pos + size], dur,
+                              is_sync=not flags & 0x00010000))
+        pos += size
+    return samples
+
+
 def _cmaf_to_mp4(rdir: Path, n: int, path: Path) -> Path:
     """The first ``n`` samples of a CMAF rung (its segments' trun/mdat,
     the avc1 entry and timescale of its init.mp4) as a progressive MP4
-    written by the port's muxer: an upload in the platform's own output
-    format."""
+    written by the port's muxer, with an AAC track as long as the video
+    (a seeded stereo 48 kHz signal, encoded by the port's encoder on the
+    card): an upload in the platform's own output format."""
+    from vlog_tpu_torch.codecs.aac import AacEncoder
     from vlog_tpu_torch.media.boxes import parse_box_tree
-    from vlog_tpu_torch.media.fmp4 import Sample, TrackConfig, progressive_mp4
+    from vlog_tpu_torch.media.fmp4 import (Sample, TrackConfig,
+                                           mp4a_sample_entry,
+                                           progressive_mp4_multi)
 
     with open(rdir / "init.mp4", "rb") as fp:
         moov = next(b for b in parse_box_tree(fp) if b.type == "moov")
     entry = moov.find("trak", "mdia", "minf", "stbl", "stsd").payload[8:]
     timescale = int.from_bytes(
         moov.find("trak", "mdia", "mdhd").payload[12:16], "big")
-    samples = []
-    for seg in sorted(rdir.glob("segment_*.m4s")):
-        data = seg.read_bytes()
-        with open(seg, "rb") as fp:
-            moof = next(b for b in parse_box_tree(fp) if b.type == "moof")
-        trun = moof.find("traf", "trun").payload
-        pos = moof.offset + int.from_bytes(trun[8:12], "big", signed=True)
-        for k in range(int.from_bytes(trun[4:8], "big")):
-            dur, size, flags = (int.from_bytes(trun[i:i + 4], "big")
-                                for i in range(12 + 16 * k, 24 + 16 * k, 4))
-            samples.append(Sample(data[pos:pos + size], dur,
-                                  is_sync=not flags & 0x00010000))
-            pos += size
+    samples = [s for seg in sorted(rdir.glob("segment_*.m4s"))
+               for s in _segment_samples(seg)]
     if len(samples) < n:
         fail(f"{rdir}: {len(samples)} samples, want {n}")
     width, height = (int.from_bytes(entry[i:i + 2], "big") for i in (32, 34))
-    path.write_bytes(progressive_mp4(
-        TrackConfig(1, "vide", timescale, entry, width, height), samples[:n]))
+    samples = samples[:n]
+    seconds = sum(s.duration for s in samples) / timescale
+    enc = AacEncoder(AAC_SR, 2, AAC_TRACK_BPS, device="cuda")
+    audio = [Sample(p, 1024) for p in enc.encode_frames(_av_audio(seconds, n))]
+    atrack = TrackConfig(2, "soun", AAC_SR, mp4a_sample_entry(
+        2, AAC_SR, enc.config.audio_specific_config(), AAC_TRACK_BPS))
+    path.write_bytes(progressive_mp4_multi(
+        [(TrackConfig(1, "vide", timescale, entry, width, height), samples),
+         (atrack, audio)]))
     return path
 
 
@@ -741,23 +811,35 @@ def _frames_equal(a, b, what: str) -> None:
             fail(f"{what}: plane {name} differs ({bad} pixels)")
 
 
-def phase_mp4(work: Path) -> tuple[int, Path, tuple]:
-    """The slice's 1080p rung as an MP4 upload through the default plan.
-    Returns the launches, the MP4 and the run's decoded frames."""
+def _log_steps(name: str, res) -> None:
+    log(f"{name}: seconds per step " + json.dumps(
+        {k: round(v, 4) for k, v in res.step_s.items()}))
+
+
+def phase_pipeline(work: Path) -> tuple[int, Path, tuple]:
+    """The slice's 1080p rung as an A/V MP4 upload through
+    ``process_video`` with the default plan on the card. Returns the
+    launches, the MP4 and the run's decoded frames."""
+    from vlog_tpu_torch.backends import get_backend
     from vlog_tpu_torch.backends import source as source_mod
     from vlog_tpu_torch.backends import torch_backend
+    from vlog_tpu_torch.codecs.aac import AacConfig, AacDecoder
     from vlog_tpu_torch.media import mp4 as mp4mod
+    from vlog_tpu_torch.media.audio import extract_audio
     from vlog_tpu_torch.media.probe import get_video_info
     from vlog_tpu_torch.ops import fused_resize
+    from vlog_tpu_torch.storage import integrity
+    from vlog_tpu_torch.worker import process_video
 
     path = _cmaf_to_mp4(work / "slice" / "1080p", MP4_FRAMES,
                         work / "ip_1080p.mp4")
     info = get_video_info(path)
     sync = mp4mod.parse_mp4(path).video.samples.sync_indices
     if (info.width, info.height, info.frame_count) != (SRC_W, SRC_H, MP4_FRAMES) \
-            or sync is None or list(sync) != [0]:
+            or sync is None or list(sync) != [0] or info.audio_codec is None:
         fail(f"mp4 source: {info.width}x{info.height}, {info.frame_count} "
-             f"samples, sync samples {sync}; want 1 IDR + {MP4_FRAMES - 1} P")
+             f"samples, sync samples {sync}, audio {info.audio_codec}; want "
+             f"1 IDR + {MP4_FRAMES - 1} P and an AAC track")
 
     # the run's own source, its batches recorded: the sequential decode
     opened, batches = [], []
@@ -775,36 +857,77 @@ def phase_mp4(work: Path) -> tuple[int, Path, tuple]:
         opened.append(src)
         return src
 
-    out = work / "mp4"
-    backend = torch_backend.TorchBackend(device="cuda")
+    out = work / "pipeline"
+    backend = get_backend("torch")
+    if backend.device.type != "cuda":
+        fail(f"pipeline: get_backend('torch') runs on {backend.device}")
     plan = backend.plan(info, out_dir=out)
-    dispatches = len(_frames_per_call(plan, "mp4", MP4_FRAMES))
+    dispatches = len(_frames_per_call(plan, "pipeline", MP4_FRAMES))
     scaled = sum(1 for r in plan.rungs if (r.height, r.width) != (SRC_H, SRC_W))
     torch_backend.open_source = recording_source
     fused_resize.launches = 0
     try:
         t0 = time.perf_counter()
-        res = backend.run(plan)
+        res = process_video(path, out, backend=backend)
         wall = time.perf_counter() - t0
     finally:
         torch_backend.open_source = source_mod.open_source
     launches = fused_resize.launches
     expected = (scaled * 3 * dispatches + 3) * fused_resize.LAUNCHES_PER_CALL
     if launches != expected:
-        fail(f"mp4: kernel launches {launches}, expected {expected}")
-    _check_rungs(res, out, MP4_FRAMES)
+        fail(f"pipeline: kernel launches {launches}, expected {expected}")
+    _check_rungs(res.run, out, MP4_FRAMES)
     src = opened[0]
     if not isinstance(src, source_mod.Mp4H264FrameSource) \
             or src.device.type != "cuda" or src.frames_decoded != MP4_FRAMES:
-        fail(f"mp4: the run read {type(src).__name__} on {src.device}, "
+        fail(f"pipeline: the run read {type(src).__name__} on {src.device}, "
              f"{src.frames_decoded} frames decoded")
     seq = tuple(np.concatenate([b[i] for b in batches]) for i in range(3))
     split = {k: round(v, 4) for k, v in src._decoder.stage_s.items()}
-    log(f"mp4: {res.frames_processed} frames in {wall:.2f}s wall; stage_s "
-        + json.dumps(res.stage_s) + f"; kernel launches {launches}; "
-        f"decode by stage (s, {MP4_FRAMES} frames: 1 I + "
+    log(f"pipeline: {res.run.frames_processed} frames in {wall:.2f}s wall; "
+        f"stage_s " + json.dumps(res.run.stage_s) + f"; kernel launches "
+        f"{launches}; decode by stage (s, {MP4_FRAMES} frames: 1 I + "
         f"{MP4_FRAMES - 1} P, 1080p) " + json.dumps(split) + "; per frame "
         + json.dumps({k: round(v / MP4_FRAMES, 4) for k, v in split.items()}))
+    _log_steps("pipeline", res)
+
+    # the outputs: one DB row per rung, the audio group, the manifests
+    want_rows = [r.name for r in plan.rungs]
+    if [q["quality"] for q in res.qualities] != want_rows \
+            or res.qualities != res.to_db_rows():
+        fail(f"pipeline: qualities {res.qualities}; want one row per rung "
+             f"{want_rows}")
+    kbps = sorted({r.audio_bitrate // 1000 for r in plan.rungs}, reverse=True)
+    names = [a["name"] for a in res.audio_renditions]
+    if names != [f"audio_{k}k" for k in kbps] or len(names) != 3:
+        fail(f"pipeline: audio renditions {names}; want 192k, 128k, 96k")
+    master = (out / "master.m3u8").read_text()
+    mpd = (out / "manifest.mpd").read_text()
+    if master.count("#EXT-X-MEDIA:TYPE=AUDIO") != 3 \
+            or 'mimeType="audio/mp4"' not in mpd:
+        fail("pipeline: master.m3u8 lacks EXT-X-MEDIA or manifest.mpd its "
+             "audio adaptation set")
+    files = integrity.load_manifest(out)
+    problems = integrity.verify_tree(out, files or {})
+    if not files or problems or "rc_journal.jsonl" in files \
+            or set(files) != set(integrity.build_manifest(out)):
+        fail(f"pipeline: outputs.json does not verify the tree: {problems}")
+    # each rendition decodes to the MP4's own audio track
+    src_pcm = extract_audio(path).pcm
+    corr = {}
+    for name in names:
+        dec = AacDecoder(AacConfig(sample_rate=AAC_SR, channels=2))
+        pcm = np.concatenate([dec.decode_frame(s.data) for seg in
+                              sorted((out / name).glob("segment_*.m4s"))
+                              for s in _segment_samples(seg)], axis=1)
+        n = min(pcm.shape[1], src_pcm.shape[1])
+        corr[name] = float(np.corrcoef(pcm[0, 2048:n], src_pcm[0, 2048:n])[0, 1])
+    if min(corr.values()) < 0.9:
+        fail(f"pipeline: audio renditions do not follow the source: {corr}")
+    log(f"pipeline: {len(files)} files in outputs.json verified; audio "
+        f"renditions {names}, correlation with the source track "
+        + json.dumps({k: round(v, 4) for k, v in corr.items()})
+        + f"; qualities {json.dumps(res.qualities)}")
 
     # the port's CPU decode of the same samples: frames 0-1 bit-identical
     t0 = time.perf_counter()
@@ -823,11 +946,189 @@ def phase_mp4(work: Path) -> tuple[int, Path, tuple]:
                   f"fresh read of frame {SEEK_FRAME}")
     if n_dec != SEEK_FRAME + 1:
         fail(f"fresh read of frame {SEEK_FRAME} decoded {n_dec} frames")
-    log(f"mp4: card frames 0-1 identical to the CPU decode ({t_cpu:.2f}s, "
+    log(f"pipeline: card frames 0-1 identical to the CPU decode ({t_cpu:.2f}s, "
         f"by stage {json.dumps(cpu_split)}); frame {SEEK_FRAME} on a fresh "
         f"source equals the run's ({n_dec} frames decoded from the IDR, "
         f"{t_seek:.2f}s)")
     return launches, path, seq
+
+
+def phase_pipeline_ts(path: Path) -> int:
+    """The same A/V MP4 through ``process_video`` as classic HLS: the
+    360p rung, ``hls_ts``, the audio muxed into every segment."""
+    from vlog_tpu_torch import config
+    from vlog_tpu_torch.backends import get_backend
+    from vlog_tpu_torch.media.probe import get_video_info
+    from vlog_tpu_torch.media.ts import AUDIO_PID, VIDEO_PID
+    from vlog_tpu_torch.ops import fused_resize
+    from vlog_tpu_torch.storage import integrity
+    from vlog_tpu_torch.worker import process_video
+
+    rung = next(r for r in config.QUALITY_LADDER if r.name == TS_PIPELINE_RUNG)
+    out = path.parent / "pipeline_ts"
+    backend = get_backend("torch")
+    plan = backend.plan(get_video_info(path), (rung,), out,
+                        streaming_format="hls_ts")
+    dispatches = len(_frames_per_call(plan, "pipeline_ts", MP4_FRAMES))
+    fused_resize.launches = 0
+    t0 = time.perf_counter()
+    res = process_video(path, out, backend=backend, rungs=(rung,),
+                        streaming_format="hls_ts")
+    wall = time.perf_counter() - t0
+    launches = fused_resize.launches
+    expected = (3 * dispatches + 3) * fused_resize.LAUNCHES_PER_CALL
+    if launches != expected:
+        fail(f"pipeline_ts: kernel launches {launches}, expected {expected}")
+    segs = sorted((out / rung.name).glob("segment_*.ts"))
+    counts = []
+    for seg in segs:
+        data = seg.read_bytes()
+        if not data or len(data) % 188:
+            fail(f"pipeline_ts {seg.name}: {len(data)} bytes, not whole "
+                 "188-byte packets")
+        pes = {VIDEO_PID: 0, AUDIO_PID: 0}
+        for i in range(0, len(data), 188):
+            if data[i] != 0x47:
+                fail(f"pipeline_ts {seg.name}: packet at {i} lacks 0x47")
+            pid = ((data[i + 1] & 0x1F) << 8) | data[i + 2]
+            if pid in pes and data[i + 1] & 0x40:
+                pes[pid] += 1
+        counts.append(pes)
+        if not pes[AUDIO_PID]:
+            fail(f"pipeline_ts {seg.name}: no audio PES on PID {AUDIO_PID:#x}")
+    if not segs or sum(c[VIDEO_PID] for c in counts) != MP4_FRAMES:
+        fail(f"pipeline_ts: video PES per segment {counts}, want "
+             f"{MP4_FRAMES} in all")
+    if res.audio_renditions or (out / "manifest.mpd").exists() \
+            or integrity.verify_tree(out, integrity.load_manifest(out) or {}):
+        fail("pipeline_ts: audio renditions or a DASH manifest written, or "
+             "outputs.json does not verify")
+    log(f"pipeline_ts: {len(segs)} segments, PES per segment (video, audio) "
+        f"{[(c[VIDEO_PID], c[AUDIO_PID]) for c in counts]}, "
+        f"{res.run.rungs[0].bytes_written} bytes, {wall:.2f}s wall; "
+        f"kernel launches {launches}")
+    _log_steps("pipeline_ts", res)
+    return launches
+
+
+def _aac_snr(ref: np.ndarray, payloads: list[bytes]) -> float:
+    """SNR (dB) of a payload stream (priming frame first) decoded by the
+    port's decoder against its source PCM, past the first 2048 samples."""
+    from vlog_tpu_torch.codecs.aac import AacConfig, AacDecoder
+
+    dec = AacDecoder(AacConfig(sample_rate=AAC_SR, channels=ref.shape[0]))
+    out = np.concatenate([dec.decode_frame(p) for p in payloads], axis=1)
+    n = min(out.shape[1] - 1024, ref.shape[1])
+    r, o = ref[:, 2048:n], out[:, 1024 + 2048:1024 + n]
+    return float(10 * np.log10(np.sum(r ** 2) / np.sum((r - o) ** 2)))
+
+
+def _aac_card_vs_cpu(pcm: np.ndarray, bitrate: int) -> dict:
+    """AacEncoder on the card against the CPU on the same PCM: payload
+    differences, bytes, SNRs, and the card run's host seconds split into
+    the MDCT step and the rest (scalefactors, quantization, the Huffman
+    pack, rate control)."""
+    from vlog_tpu_torch.codecs.aac import AacEncoder
+
+    card = AacEncoder(AAC_SR, 2, bitrate, device="cuda")
+    mdct_s = []
+    mdct = card._mdct_all
+
+    def timed_mdct(x):
+        t0 = time.perf_counter()
+        out = mdct(x)
+        mdct_s.append(time.perf_counter() - t0)
+        return out
+
+    card._mdct_all = timed_mdct
+    t0 = time.perf_counter()
+    got = card.encode_frames(pcm)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = AacEncoder(AAC_SR, 2, bitrate, device="cpu").encode_frames(pcm)
+    cpu_s = time.perf_counter() - t0
+    differ = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+    audio_s = pcm.shape[1] / AAC_SR
+    row = {"seconds_of_audio": audio_s, "bitrate": bitrate,
+           "payloads": [len(got), len(want)],
+           "differing_payloads": len(differ),
+           "first_differing": differ[0] if differ else None,
+           "bytes": [sum(map(len, got)), sum(map(len, want))],
+           "card_encode_s": round(card_s, 4), "card_mdct_s": round(mdct_s[0], 4),
+           "cpu_encode_s": round(cpu_s, 4),
+           "host_pack_s_per_audio_s": round((card_s - mdct_s[0]) / audio_s, 4)}
+    row["snr_db"] = [_aac_snr(pcm, got), _aac_snr(pcm, want)]
+    return row
+
+
+def phase_aac(timer: DeviceTimer) -> dict:
+    """AacEncoder on the card against the CPU at 128 kbps on one default
+    segment of seeded stereo audio (held to AAC_BYTES_RTOL and
+    AAC_SNR_DB_TOL when any payload differs), the same on a band-limited
+    track (printed), and forward_mdct timed alone on a 30 s chunk."""
+    from vlog_tpu_torch.codecs.aac import AacEncoder, decode_adts
+    from vlog_tpu_torch.codecs.aac.mdct import forward_mdct, mdct_matrix
+    from vlog_tpu_torch.ops import fused_resize
+
+    fused_resize.launches = 0
+    row = _aac_card_vs_cpu(_av_audio(AAC_SECONDS, 6), AAC_TRACK_BPS)
+    log("aac card vs CPU (6 s broadband, 128 kbps): " + json.dumps(row))
+    if row["payloads"] != [AAC_PAYLOADS] * 2:
+        fail(f"aac: {row['payloads']} payloads, want {AAC_PAYLOADS}")
+    if row["differing_payloads"]:
+        b_card, b_cpu = row["bytes"]
+        s_card, s_cpu = row["snr_db"]
+        if abs(b_card - b_cpu) > AAC_BYTES_RTOL * b_cpu \
+                or abs(s_card - s_cpu) > AAC_SNR_DB_TOL:
+            fail(f"aac: card and CPU streams differ past the bound: bytes "
+                 f"{row['bytes']}, SNR {row['snr_db']} dB")
+    # band-limited input (the tones through AAC once): its empty bands
+    # hold only the MDCT's float32 rounding noise (ROADMAP Queue C item
+    # 13); printed, not bounded
+    t = np.arange(int(AAC_SR * AAC_BAND_LIMITED_SECONDS)) / AAC_SR
+    tones = np.stack([0.4 * np.sin(2 * np.pi * f * t) for f in (440.0, 660.0)])
+    _, limited = decode_adts(AacEncoder(AAC_SR, 2, AAC_TRACK_BPS,
+                                        device="cuda").encode_adts(tones))
+    limited_row = _aac_card_vs_cpu(limited, AAC_TRACK_BPS)
+    log("aac card vs CPU (1 s band-limited tones, 128 kbps): "
+        + json.dumps(limited_row))
+
+    # forward_mdct alone on a 30 s chunk, against its bound
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(30)
+    x = torch.rand(MDCT_CHUNK, generator=gen, device=dev) * 65536 - 32768
+    basis = torch.as_tensor(mdct_matrix(MDCT_CHUNK[-1]), dtype=torch.float32,
+                            device=dev)
+    got = forward_mdct(x, basis).cpu()
+    want = forward_mdct(x.cpu(), basis.cpu())
+    err = float((got - want).abs().max()) / float(want.abs().max())
+    if err > 1e-5:
+        fail(f"aac: forward_mdct on the card differs from the CPU by {err:.2e} "
+             "of max |X|")
+    n_rows = MDCT_CHUNK[0] * MDCT_CHUNK[1]
+    k, n = MDCT_CHUNK[-1] // 2, MDCT_CHUNK[-1]
+    flops = 2.0 * n_rows * n * k + n_rows * k          # the product, the 2x
+    nbytes = 4 * (n_rows * n + k * n + n_rows * k)
+    fn = lambda: forward_mdct(x, basis)                 # noqa: E731
+    mdct = {"shape": [list(MDCT_CHUNK), [n, k]], "ms": timer.ms(fn, REPS),
+            "kernels_per_call": timer.kernels_per_call,
+            "call_ms": call_ms(fn, REPS), "gflop": flops / 1e9,
+            "mbytes": nbytes / 1e6,
+            "ops_ms": flops / PEAK_FP32_FLOPS * 1e3,
+            "bytes_ms": nbytes / PEAK_BYTES_PER_S * 1e3,
+            "max_rel_err_vs_cpu": err,
+            "tf32": torch.backends.cuda.matmul.allow_tf32}
+    mdct["bound_ms"] = max(mdct["ops_ms"], mdct["bytes_ms"])
+    mdct["bound_by"] = ("bytes" if mdct["bytes_ms"] >= mdct["ops_ms"]
+                        else "operations")
+    mdct["share_of_bound"] = mdct["bound_ms"] / mdct["ms"]
+    log("aac forward_mdct (30 s stereo chunk, float32, TF32 off): "
+        + json.dumps(mdct))
+    if mdct["tf32"]:
+        fail("aac: TF32 is on")
+    if fused_resize.launches:
+        fail(f"aac: {fused_resize.launches} resize launches")
+    return {"card_vs_cpu": row, "band_limited": limited_row, "mdct": mdct}
 
 
 def phase_sprites(work: Path, ip_path: Path, seq: tuple) -> int:
@@ -1332,18 +1633,22 @@ def main() -> int:
     log("libav ingest shim: " + ("built" if get_av_lib() is not None else
                                  "unavailable on this machine (optional; "
                                  "no phase uses it)"))
-    kern = timed("kernel", phase_kernel, FRAMES)
+    # one profiler-backed timer for the process (the kernel and aac phases)
+    timer = DeviceTimer(torch.device("cuda"))
+    kern = timed("kernel", phase_kernel, timer, FRAMES)
     timed("integer", phase_integer)
+    timed("aac", phase_aac, timer)      # fails on any resize launch
+    launches = {"aac": 0}
     work = ROOT / "vlog_tpu_torch" / "_build" / "smoke"
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     sources = timed("write_y4m", _write_sources, work,
                     (FRAMES, INTRA_FRAMES, RESUME_FRAMES, TS_FRAMES), 11)
-    launches = {
-        "slice": timed("slice", phase_slice, sources[FRAMES]),
-        "intra": timed("intra", phase_intra, sources[INTRA_FRAMES]),
-    }
-    launches["mp4"], ip_path, seq = timed("mp4", phase_mp4, work)
+    launches["slice"] = timed("slice", phase_slice, sources[FRAMES])
+    launches["intra"] = timed("intra", phase_intra, sources[INTRA_FRAMES])
+    launches["pipeline"], ip_path, seq = timed("pipeline", phase_pipeline,
+                                               work)
+    launches["pipeline_ts"] = timed("pipeline_ts", phase_pipeline_ts, ip_path)
     launches["sprites"] = timed("sprites", phase_sprites, work, ip_path, seq)
     launches["resume"] = timed("resume", phase_resume, sources[RESUME_FRAMES])
     launches["ts"] = timed("ts", phase_ts, sources[TS_FRAMES])

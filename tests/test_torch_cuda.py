@@ -1,7 +1,8 @@
 """Card-only tests of the PyTorch port: the CUDA resize kernel against
 its plain version (the ladder's shapes and the sprite tiles'), the
 integer stages and the decoder's device functions on CUDA against the
-CPU, and the sprite worker on the card.
+CPU, the sprite worker, Whisper, the AAC encoder and ``process_video``
+on the card.
 
 Marked ``cuda``; each test skips (in its fixture) without a CUDA
 device. On a machine with a card and without JAX, run them alone:
@@ -354,3 +355,77 @@ def test_whisper_solo_and_packed_tokens_identical_on_the_card(cuda,
                                             beam=beam)
             np.testing.assert_array_equal(solo[0], packed[row],
                                           err_msg=f"beam {beam} row {row}")
+
+
+# --------------------------------------------------------------------------
+# The AAC encoder and process_video on the card
+# --------------------------------------------------------------------------
+
+def test_aac_encoder_card_matches_cpu(cuda):
+    """forward_mdct within 1e-5 of max |X| of the CPU's (float32 sums in
+    other orders); the encoders' payloads identical, or held to the
+    bound chip_smoke.py states (total bytes within 1%, SNRs within
+    0.1 dB) where a level flips."""
+    import chip_smoke
+    from vlog_tpu_torch.codecs.aac.mdct import forward_mdct
+
+    g = torch.Generator(device=cuda).manual_seed(6)
+    x = torch.rand((2, 96, 2048), generator=g, device=cuda) * 65536 - 32768
+    got, want = forward_mdct(x).cpu(), forward_mdct(x.cpu())
+    assert (got - want).abs().max() <= 1e-5 * want.abs().max()
+    row = chip_smoke._aac_card_vs_cpu(chip_smoke._av_audio(1.0, 7), 128_000)
+    assert row["payloads"][0] == row["payloads"][1] == 48
+    if row["differing_payloads"]:
+        (b_card, b_cpu), (s_card, s_cpu) = row["bytes"], row["snr_db"]
+        assert abs(b_card - b_cpu) <= chip_smoke.AAC_BYTES_RTOL * b_cpu, row
+        assert abs(s_card - s_cpu) <= chip_smoke.AAC_SNR_DB_TOL, row
+
+
+def test_process_video_on_the_card(cuda, tmp_path, monkeypatch):
+    """A tiny A/V MP4 (the port's 96x128 intra rung plus an AAC track)
+    through ``process_video`` with the defaults' device: the backend
+    selected on the card, a scaled rung through the kernel, the audio
+    group, ``outputs.json`` verifying the tree; the CPU run of the same
+    upload writes the same files with the same rows but the bytes."""
+    import chip_smoke
+    from vlog_tpu_torch import config
+    from vlog_tpu_torch.backends import base
+    from vlog_tpu_torch.backends.torch_backend import TorchBackend
+    from vlog_tpu_torch.media.probe import get_video_info
+    from vlog_tpu_torch.media.y4m import write_y4m
+    from vlog_tpu_torch.storage import integrity
+    from vlog_tpu_torch.worker import process_video
+
+    y, u, v = chip_smoke._smooth_frames(8, 96, 128, seed=2)
+    y4m = tmp_path / "src.y4m"
+    write_y4m(y4m, list(zip(y, u, v)), fps_num=8, fps_den=1)
+    ident = config.QualityRung("96p", 96, 0, 128_000, base_qp=28)
+    cpu = TorchBackend(device="cpu")
+    cpu.run(cpu.plan(get_video_info(y4m), (ident,), tmp_path / "cmaf",
+                     gop_mode="intra", thumbnail=False))
+    mp4 = chip_smoke._cmaf_to_mp4(tmp_path / "cmaf" / "96p", 8,
+                                  tmp_path / "av.mp4")
+    rungs = (ident, config.QualityRung("64p", 64, 150_000, 96_000,
+                                       base_qp=30))
+    monkeypatch.setattr(base, "_SELECTED", {})
+    before = fused_resize.launches
+    card = process_video(mp4, tmp_path / "card", rungs=rungs,
+                         segment_duration_s=0.5)
+    # the 64p rung's 3 planes, one dispatch of two 4-frame chains
+    assert fused_resize.launches - before == 3
+    assert base._SELECTED["cuda"].device.type == "cuda"
+    host = process_video(mp4, tmp_path / "cpu", rungs=rungs, device="cpu",
+                         segment_duration_s=0.5)
+    for res, root in ((card, tmp_path / "card"), (host, tmp_path / "cpu")):
+        assert [a["name"] for a in res.audio_renditions] == ["audio_128k",
+                                                             "audio_96k"]
+        assert integrity.verify_tree(root, integrity.load_manifest(root)) == []
+        assert all(r.mean_psnr_y > 30 for r in res.run.rungs)
+    assert sorted(p.relative_to(tmp_path / "card") for p in
+                  (tmp_path / "card").rglob("*")) == \
+        sorted(p.relative_to(tmp_path / "cpu") for p in
+               (tmp_path / "cpu").rglob("*"))
+    strip = lambda rows: [{k: r[k] for k in ("quality", "width", "height",  # noqa: E731
+                                             "codec_string", "audio_bitrate",
+                                             "segment_count")} for r in rows]
+    assert strip(card.qualities) == strip(host.qualities)

@@ -1,4 +1,6 @@
-"""PyTorch/CUDA port of the vlog_tpu encode path (H.264 I+P CMAF ladder).
+"""PyTorch/CUDA port of the vlog_tpu compute: the per-video pipeline
+(``worker.process_video``: the H.264 ladder, the AAC renditions,
+verification, the manifest), sprites and captions.
 
 The package stands beside ``vlog_tpu`` and imports nothing from it: the
 JAX package is the reference, and every function here is tested against

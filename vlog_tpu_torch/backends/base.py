@@ -1,17 +1,51 @@
-"""Plan and result types of the backend (subset of
-``vlog_tpu/backends/base.py``)."""
+"""Accelerator boundary: backend protocol, capability model, registry,
+and the plan and result types (port of ``vlog_tpu/backends/base.py``).
+
+A :class:`Backend` maps a source + ladder to an executable plan and runs
+it; the worker pipeline never imports a concrete backend. Registering a
+backend is one :func:`register_backend` call, and the registry's
+factories take the torch device the backend computes on.
+"""
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from pathlib import Path
-from typing import Callable
+from typing import Callable, Protocol
+
+import torch
 
 from vlog_tpu_torch import config
 from vlog_tpu_torch.media.probe import VideoInfo
 
 # progress callback: (done, total, message)
 ProgressFn = Callable[[int, int, str], None]
+
+
+@dataclass(frozen=True)
+class Capabilities:
+    """What an accelerator can do."""
+
+    backend: str                       # registry name, e.g. "torch"
+    device_kind: str                   # "gpu" | "cpu"
+    device_count: int
+    codecs: tuple[str, ...]            # encodeable codecs
+    decode_codecs: tuple[str, ...]     # decodeable codecs
+    max_parallel_jobs: int = 1
+    memory_bytes: int | None = None
+    details: dict = field(default_factory=dict)
+
+    def to_dict(self) -> dict:
+        return {
+            "backend": self.backend,
+            "device_kind": self.device_kind,
+            "device_count": self.device_count,
+            "codecs": list(self.codecs),
+            "decode_codecs": list(self.decode_codecs),
+            "max_parallel_jobs": self.max_parallel_jobs,
+            "memory_bytes": self.memory_bytes,
+            **self.details,
+        }
 
 
 @dataclass(frozen=True)
@@ -93,3 +127,83 @@ def plan_rung_geometry(src_w: int, src_h: int, rung: config.QualityRung,
         video_bitrate=rung.video_bitrate, qp=rung.base_qp, codec=codec,
         audio_bitrate=getattr(rung, "audio_bitrate", 0),
     )
+
+
+class Backend(Protocol):
+    """Accelerator backend protocol."""
+
+    name: str
+    device: torch.device          # where the backend computes
+
+    def detect(self) -> Capabilities: ...
+
+    def plan(self, source: VideoInfo, rungs, out_dir: Path,
+             **opts) -> ExecutionPlan: ...
+
+    def run(self, plan: ExecutionPlan, progress_cb: ProgressFn | None = None,
+            *, resume: bool = True) -> RunResult: ...
+
+
+# --------------------------------------------------------------------------
+# Registry
+# --------------------------------------------------------------------------
+
+# name -> factory(device) -> Backend
+_REGISTRY: dict[str, Callable[..., Backend]] = {}
+# device -> the backend select_backend chose for it
+_SELECTED: dict[str, Backend] = {}
+
+
+def register_backend(name: str, factory: Callable[..., Backend]) -> None:
+    _REGISTRY[name] = factory
+
+
+def available_backends() -> list[str]:
+    return list(_REGISTRY)
+
+
+def get_backend(name: str, device: str | torch.device = "cuda") -> Backend:
+    try:
+        factory = _REGISTRY[name]
+    except KeyError:
+        raise ValueError(
+            f"unknown backend {name!r}; registered: {sorted(_REGISTRY)}"
+        ) from None
+    return factory(device=device)
+
+
+def select_backend(preference: str | None = None, *,
+                   device: str | torch.device = "cuda") -> Backend:
+    """Pick the best available backend on ``device``.
+
+    Explicit preference first, then whichever registered backend reports
+    a GPU, then anything. A backend that cannot be built or whose
+    ``detect()`` raises is skipped; with none left, selection raises (so
+    a machine without CUDA gets an error, not a CPU run). The choice is
+    cached per device for the process: probing may open the card, once,
+    not per job.
+    """
+    if preference:
+        return get_backend(preference, device)
+    key = str(device)
+    if key in _SELECTED:
+        return _SELECTED[key]
+    best, skipped = None, []
+    for name in _REGISTRY:
+        try:
+            b = get_backend(name, device)
+            caps = b.detect()
+        except Exception as exc:   # noqa: BLE001 — a broken backend is
+            skipped.append(f"{name}: {exc}")   # skipped, not fatal
+            continue
+        if caps.device_kind == "gpu":
+            best = b
+            break
+        if best is None:
+            best = b
+    if best is None:
+        raise RuntimeError(
+            "no backends registered (or none detectable on "
+            f"{key!r}): {'; '.join(skipped) or 'registry empty'}")
+    _SELECTED[key] = best
+    return best

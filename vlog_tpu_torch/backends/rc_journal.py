@@ -32,8 +32,9 @@ from __future__ import annotations
 import json
 from pathlib import Path
 
-# Run state, not a published artifact (vlog_tpu/storage/integrity.py
-# keeps the same name out of the manifest).
+# Run state, not a published artifact: its bytes are shaped by the
+# dispatch geometry, so storage/integrity.py keeps it out of the
+# outputs.json manifest (as the JAX package does).
 RC_JOURNAL_NAME = "rc_journal.jsonl"
 
 __all__ = ["RC_JOURNAL_NAME", "RCJournal", "aligned_resume_point",

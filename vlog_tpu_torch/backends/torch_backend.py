@@ -45,10 +45,12 @@ import torch
 from vlog_tpu_torch import config
 from vlog_tpu_torch.backends import rc_journal as rcj
 from vlog_tpu_torch.backends.base import (
+    Capabilities,
     ExecutionPlan,
     RungResult,
     RunResult,
     plan_rung_geometry,
+    register_backend,
 )
 from vlog_tpu_torch.backends.rate_control import RateController
 from vlog_tpu_torch.backends.source import open_source
@@ -70,6 +72,7 @@ from vlog_tpu_torch.parallel.executor import LaggedRateControl
 from vlog_tpu_torch.parallel.ladder import (ladder_chain_program,
                                             ladder_encode_program,
                                             ladder_matrices, mats_from_numpy)
+from vlog_tpu_torch.utils import failpoints
 from vlog_tpu_torch.utils.fsio import (atomic_write_bytes, atomic_write_text,
                                        prepare_init_segment)
 
@@ -88,6 +91,22 @@ class TorchBackend:
     def __init__(self, device="cuda"):
         self.device = resolve_device(device)
         self._thumb_mats = {}       # (h, w, th, tw) -> the thumbnail's matrices
+
+    def detect(self) -> Capabilities:
+        """What this backend's device offers; raises on a CUDA device when
+        CUDA is missing."""
+        dev = resolve_device(self.device)
+        if dev.type == "cuda":
+            props = torch.cuda.get_device_properties(dev)
+            kind, count, mem = "gpu", torch.cuda.device_count(), props.total_memory
+            names = [props.name]
+        else:
+            kind, count, mem, names = "cpu", 1, None, ["cpu"]
+        return Capabilities(
+            backend=self.name, device_kind=kind, device_count=count,
+            codecs=("h264",), decode_codecs=("h264", "raw"),
+            max_parallel_jobs=1, memory_bytes=mem,
+            details={"devices": names})
 
     # ------------------------------------------------------------------
     def plan(self, source: VideoInfo, rungs=None, out_dir: Path | str = ".",
@@ -132,6 +151,7 @@ class TorchBackend:
     # ------------------------------------------------------------------
     def run(self, plan: ExecutionPlan, progress_cb=None, *,
             resume: bool = True) -> RunResult:
+        failpoints.hit("backend.encode")    # chaos: simulated device fault
         t0 = time.monotonic()
         dev = self.device
         out = plan.out_dir
@@ -601,3 +621,6 @@ class TorchBackend:
         blocks = self._thumbnail_blocks(*self._thumbnail_planes(y, u, v,
                                                                 max_width))
         atomic_write_bytes(Path(path), pack_jpeg(blocks))
+
+
+register_backend("torch", TorchBackend)

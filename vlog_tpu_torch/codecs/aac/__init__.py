@@ -1,8 +1,15 @@
-"""The host AAC-LC decoder (copies of ``vlog_tpu/codecs/aac``'s ADTS
-framing, tables, Huffman books and decoder; the device MDCT encoder is
-not ported yet)."""
+"""First-party AAC-LC codec: the encoder with its MDCT on the device, and
+the host decoder (port of ``vlog_tpu/codecs/aac``)."""
 
-from vlog_tpu_torch.codecs.aac.adts import AacConfig, split_adts
+from vlog_tpu_torch.codecs.aac.adts import AacConfig, adts_header, split_adts
 from vlog_tpu_torch.codecs.aac.decoder import AacDecoder, decode_adts
+from vlog_tpu_torch.codecs.aac.encoder import AacEncoder
 
-__all__ = ["AacConfig", "AacDecoder", "decode_adts", "split_adts"]
+__all__ = [
+    "AacConfig",
+    "AacDecoder",
+    "AacEncoder",
+    "adts_header",
+    "decode_adts",
+    "split_adts",
+]

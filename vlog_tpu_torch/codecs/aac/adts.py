@@ -32,6 +32,11 @@ class AacConfig:
     def sr_index(self) -> int:
         return sample_rate_index(self.sample_rate)
 
+    def audio_specific_config(self) -> bytes:
+        """2-byte ASC: 5-bit AOT, 4-bit sr index, 4-bit channel config."""
+        v = (self.object_type << 11) | (self.sr_index << 7) | (self.channels << 3)
+        return bytes([(v >> 8) & 0xFF, v & 0xFF])
+
     @classmethod
     def from_audio_specific_config(cls, asc: bytes) -> "AacConfig":
         if len(asc) < 2:
@@ -44,6 +49,40 @@ class AacConfig:
             raise ValueError("explicit sample rate ASC not supported")
         return cls(sample_rate=SAMPLE_RATES[sr_idx], channels=ch,
                    object_type=aot)
+
+
+def adts_header(config: AacConfig, frame_len: int) -> bytes:
+    """7-byte ADTS header (no CRC) for one raw_data_block of frame_len
+    payload bytes."""
+    full = frame_len + 7
+    profile = config.object_type - 1          # ADTS profile = AOT - 1
+    h = bytearray(7)
+    h[0] = 0xFF
+    h[1] = 0xF1                               # MPEG-4, no CRC
+    h[2] = (profile << 6) | (config.sr_index << 2) | ((config.channels >> 2) & 1)
+    h[3] = ((config.channels & 3) << 6) | ((full >> 11) & 0x3)
+    h[4] = (full >> 3) & 0xFF
+    h[5] = ((full & 0x7) << 5) | 0x1F
+    h[6] = 0xFC
+    return bytes(h)
+
+
+def split_adts_frames(data: bytes) -> list[bytes]:
+    """ADTS stream -> whole frames WITH headers (what TS carriage needs:
+    stream_type 0x0F is ADTS-framed AAC, ISO 13818-7)."""
+    frames = []
+    i = 0
+    n = len(data)
+    while i + 7 <= n:
+        if data[i] != 0xFF or (data[i + 1] & 0xF0) != 0xF0:
+            raise ValueError(f"bad ADTS syncword at {i}")
+        full = ((data[i + 3] & 0x3) << 11) | (data[i + 4] << 3) \
+            | (data[i + 5] >> 5)
+        if full < 7 or i + full > n:
+            raise ValueError("truncated ADTS frame")
+        frames.append(data[i:i + full])
+        i += full
+    return frames
 
 
 def split_adts(data: bytes) -> tuple[AacConfig, list[bytes]]:

@@ -1,9 +1,15 @@
-"""The inverse MDCT and the AAC window shapes the host decoder needs
-(ISO/IEC 14496-3 4.6.11; the numpy half of ``vlog_tpu/codecs/aac/mdct.py``).
+"""MDCT / IMDCT and the AAC window shapes (ISO/IEC 14496-3 4.6.11; port of
+``vlog_tpu/codecs/aac/mdct.py``).
 
-Conventions: inverse x[n] = (2/N) sum_k X[k] cos(2pi/N (n+n0)(k+1/2)),
-n0 = (N/2+1)/2 (the spec's scaling). Sine and KBD windows per
-4.6.11.3; with overlap-add the pair is unity-gain (Princen-Bradley TDAC).
+The forward MDCT is a dense (N/2, N) cosine-basis matmul on the device:
+for 48 kHz stereo a 30 s chunk is a (2, 1408, 2048) x (2048, 1024)
+float32 product, as the reference's XLA einsum computes it. The
+decoder's IMDCT and the windows stay host-side numpy.
+
+Conventions: forward X[k] = 2 sum_n z[n] cos(2pi/N (n+n0)(k+1/2)),
+inverse x[n] = (2/N) sum_k X[k] cos(...), n0 = (N/2+1)/2 (the spec's
+scaling). Sine and KBD windows per 4.6.11.3; with overlap-add the pair
+is unity-gain (Princen-Bradley TDAC).
 """
 
 from __future__ import annotations
@@ -11,6 +17,9 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
+
+from vlog_tpu_torch.device import strict_fp32
 
 LONG_N = 2048
 SHORT_N = 256
@@ -56,6 +65,23 @@ def window_halves(shape: int, n: int) -> tuple[np.ndarray, np.ndarray]:
     """(rising, falling) halves for window_shape 0=sine, 1=KBD."""
     w = kbd_window(n) if shape else sine_window(n)
     return w[: n // 2], w[n // 2:]
+
+
+def forward_mdct(frames: torch.Tensor,
+                 basis: torch.Tensor | None = None) -> torch.Tensor:
+    """(..., N) windowed time blocks -> (..., N/2) coefficients, float32
+    on the frames' device (TF32 off), as the reference's
+    ``forward_mdct(use_jax=True)`` computes them.
+
+    The caller applies the window first; ``basis`` is ``mdct_matrix(N)``
+    as float32 on the frames' device (built here when not given).
+    """
+    strict_fp32()
+    if basis is None:
+        basis = torch.as_tensor(mdct_matrix(frames.shape[-1]),
+                                dtype=torch.float32, device=frames.device)
+    return 2.0 * torch.einsum("kn,...n->...k", basis,
+                              frames.to(torch.float32))
 
 
 def inverse_mdct(coeffs: np.ndarray) -> np.ndarray:

@@ -4,7 +4,8 @@ Same ``VLOG_*`` names and defaults as the JAX package's config (ladder,
 GOP structure, entropy, deblocking, search radius, batch and pipeline
 depth, sprite sheets, transcription), so one environment configures
 both. Only what the port's H.264 paths (I+P or intra-only, CMAF or
-MPEG-TS), its sprite worker and its transcription worker read is here.
+MPEG-TS), its pipeline, its sprite worker and its transcription worker
+read is here.
 """
 
 from __future__ import annotations
@@ -106,6 +107,9 @@ H264_ENTROPY: str = _env_str("VLOG_H264_ENTROPY", "cabac")
 H264_DEBLOCK: bool = _env_bool("VLOG_H264_DEBLOCK", True)
 TPU_FRAME_BATCH: int = _env_int("VLOG_TPU_FRAME_BATCH", 8, lo=1, hi=256)
 PIPELINE_DEPTH: int = _env_int("VLOG_PIPELINE_DEPTH", 2, lo=1, hi=16)
+
+# Disk admission floor (storage/integrity.py::under_pressure); 0 disables.
+MIN_FREE_DISK_BYTES: int = _env_int("VLOG_MIN_FREE_DISK_GB", 10, lo=0) * 1024**3
 
 # Sprite sheets (worker/sprites.py), the JAX package's names and defaults.
 SPRITE_INTERVAL_S: float = _env_float("VLOG_SPRITE_INTERVAL", 10.0, lo=1.0)

@@ -1,9 +1,11 @@
 """Audio ingest: WAV IO, MP4 and ADTS audio through the host AAC
-decoder, resampling and downmix (copy of ``vlog_tpu/media/audio.py``).
+decoder, resampling, downmix and upmix (copy of
+``vlog_tpu/media/audio.py``).
 
 Host-side numpy: the MP4 demuxer hands over the AAC track, the decoder
 produces PCM, and a polyphase resampler (scipy) feeds the transcription
-front end. Foreign containers go through the optional libav shim.
+front end and the AAC encoder. Foreign containers go through the
+optional libav shim.
 """
 
 from __future__ import annotations
@@ -259,3 +261,12 @@ def to_mono(audio: AudioData) -> AudioData:
     return AudioData(pcm=audio.pcm.mean(axis=0, keepdims=True),
                      sample_rate=audio.sample_rate)
 
+
+
+def to_stereo(audio: AudioData) -> AudioData:
+    if audio.channels == 2:
+        return audio
+    if audio.channels == 1:
+        return AudioData(pcm=np.repeat(audio.pcm, 2, axis=0),
+                         sample_rate=audio.sample_rate)
+    return AudioData(pcm=audio.pcm[:2], sample_rate=audio.sample_rate)

@@ -1,6 +1,6 @@
 """ISO-BMFF muxing: CMAF fMP4 (init segment + media segments) and
 progressive MP4 (the subset of ``vlog_tpu/media/fmp4.py`` the H.264
-ladder writer and the MP4 sources need).
+ladder writer, the AAC renditions and the MP4 sources need).
 
 One track per CMAF file, fixed timescale, movie fragments with one trun.
 """
@@ -15,7 +15,9 @@ from vlog_tpu_torch.media.boxes import (
     box,
     fixed16_16,
     full_box,
+    u8,
     u16,
+    u24,
     u32,
     u64,
 )
@@ -45,6 +47,51 @@ def avc1_sample_entry(width: int, height: int, avcc: bytes) -> bytes:
         u16(0x0018),                # depth = 24
         struct.pack(">h", -1),      # pre_defined
         box("avcC", avcc),
+    )
+
+
+def _descriptor(tag: int, payload: bytes) -> bytes:
+    """MPEG-4 BaseDescriptor with minimal-length size encoding."""
+    size = len(payload)
+    lens = bytearray()
+    while True:
+        lens.insert(0, size & 0x7F)
+        size >>= 7
+        if not size:
+            break
+    for i in range(len(lens) - 1):
+        lens[i] |= 0x80
+    return bytes([tag]) + bytes(lens) + payload
+
+
+def esds_box(asc: bytes, avg_bitrate: int = 128_000) -> bytes:
+    """ES_Descriptor for MPEG-4 AAC (ISO 14496-1 7.2.6.5)."""
+    dec_specific = _descriptor(0x05, asc)
+    dec_config = _descriptor(
+        0x04,
+        u8(0x40)                    # objectTypeIndication: MPEG-4 Audio
+        + u8((0x05 << 2) | 1)       # streamType audio, upStream 0, reserved 1
+        + u24(6144)                 # bufferSizeDB
+        + u32(avg_bitrate * 2)      # maxBitrate
+        + u32(avg_bitrate)
+        + dec_specific,
+    )
+    sl_config = _descriptor(0x06, u8(2))
+    es = _descriptor(0x03, u16(1) + u8(0) + dec_config + sl_config)
+    return full_box("esds", 0, 0, es)
+
+
+def mp4a_sample_entry(channels: int, sample_rate: int, asc: bytes,
+                      avg_bitrate: int = 128_000) -> bytes:
+    """AudioSampleEntry 'mp4a' + esds (ISO 14496-14 5.6)."""
+    return box(
+        "mp4a",
+        b"\x00" * 6 + u16(1),       # reserved + data_reference_index
+        u32(0) * 2,                 # reserved
+        u16(channels) + u16(16),    # channelcount, samplesize
+        u16(0) + u16(0),            # pre_defined, reserved
+        u32(sample_rate << 16),     # 16.16 fixed
+        esds_box(asc, avg_bitrate),
     )
 
 

@@ -1,16 +1,23 @@
-"""Deterministic fault-injection failpoints for the ASR engine (the part
-of ``vlog_tpu/utils/failpoints.py`` the engine uses).
+"""Deterministic fault-injection failpoints (the part of
+``vlog_tpu/utils/failpoints.py`` the port's paths hit).
 
-==============  =========================================================
-site            where it fires
-==============  =========================================================
-``asr.submit``  JobHandle.submit (asr/engine.py), before a window enters
-                the cross-job queue; the submitting job's attempt fails,
-                the engine keeps serving others
-``asr.batch``   engine tick, before the batched decode forward; every
-                job with a window in the batch gets the failure, the
-                engine survives and keeps ticking
-==============  =========================================================
+==================  =====================================================
+site                where it fires
+==================  =====================================================
+``backend.encode``  at TorchBackend.run entry (worker compute thread)
+``storage.verify``  at storage.integrity.verify_tree entry — forces a
+                    manifest-verification rejection
+``device.fault``    compute thread, start of the backend ladder run
+                    (worker/pipeline.py) — re-raised as a synthetic
+                    CUDA-shaped device error (parallel/faults.py) so the
+                    quarantine/requeue/probe loop runs end to end
+``asr.submit``      JobHandle.submit (asr/engine.py), before a window
+                    enters the cross-job queue; the submitting job's
+                    attempt fails, the engine keeps serving others
+``asr.batch``       engine tick, before the batched decode forward; every
+                    job with a window in the batch gets the failure, the
+                    engine survives and keeps ticking
+==================  =====================================================
 
 :func:`arm_from_spec` (and therefore ``VLOG_FAILPOINTS``, read at
 import) rejects names not in :data:`SITES`; :func:`arm` stays permissive
@@ -36,6 +43,10 @@ ENV_VAR = "VLOG_FAILPOINTS"
 SEED_VAR = "VLOG_FAILPOINTS_SEED"
 
 SITES: dict[str, str] = {
+    "backend.encode": "TorchBackend.run entry (worker compute thread)",
+    "storage.verify": "storage.integrity.verify_tree entry",
+    "device.fault": "compute thread, start of the backend ladder run; "
+                    "re-raised as a synthetic CUDA-shaped device error",
     "asr.submit": "JobHandle.submit, before a window enters the cross-job "
                   "queue; the submitting job's attempt fails",
     "asr.batch": "ASR engine tick, before the batched decode forward; "
