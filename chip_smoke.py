@@ -70,6 +70,20 @@ Phases (any failure exits non-zero; none is caught):
    then resumed; the two trees must be identical, journal included;
 10. MPEG-TS: the same source and rung, 6 frames (one 0.25 s segment),
    ``hls_ts``: whole 188-byte packets, one video PES per frame;
+10a. hevc: the slice's source through ``process_video(src, out,
+   backend=get_backend("torch"), codec="h265")`` with the defaults (the
+   4-rung ladder, one 24-frame I+P chain in one dispatch, deblocking,
+   rate control, thumbnail): 12 launches (9 + 3 for the thumbnail), the
+   tree parses with the port's readers (hvc1 sample entry with the
+   encoder's hvcC, every segment's samples), ``outputs.json`` verifies,
+   hvc1 ``qualities`` rows, the PSNR floor, seconds per step and
+   ``stage_s``; the chain DSP on CPU and CUDA from the same padded 1080p
+   frames (1 I + 2 P, deblock, the rate cascade): levels, MVs,
+   reconstructions and ``qp_eff`` identical, ``cost`` within 1e-5; a
+   640x360 source on its identity rung (6 frames, no thumbnail, no
+   resize) written by ``TorchBackend`` on CUDA and on the CPU: the two
+   trees byte-identical; where one 1080p HEVC frame's time goes (seconds,
+   launches and device-busy share per stage, host entropy for I and P);
 10b. aac (run right after the integer stages, sharing the kernel
    phase's profiler timer): ``AacEncoder(device="cuda")`` against
    ``device="cpu"`` at 128 kbps on 6 s of seeded stereo 48 kHz audio
@@ -186,6 +200,13 @@ AAC_SNR_DB_TOL = 0.1
 MDCT_CHUNK = (2, 1408, 2048)
 # The pipeline's MPEG-TS run: the 360p rung of the A/V MP4
 TS_PIPELINE_RUNG = "360p"
+# HEVC: the chain DSP card vs CPU on the first frames of the slice's
+# source (1 I + 2 P at 1080p), and a whole tree card vs CPU on a 640x360
+# source with one identity rung (the ladder's 360p: no resize)
+HEVC_INT_FRAMES = 3
+HEVC_TREE_FRAMES = 6
+HEVC_TREE_H, HEVC_TREE_W = 360, 640
+HEVC_COST_RTOL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -1303,6 +1324,257 @@ def phase_ts(src: Path) -> int:
 
 
 
+def _tree_files(root: Path) -> dict[str, bytes]:
+    return {str(p.relative_to(root)): p.read_bytes()
+            for p in sorted(root.rglob("*")) if p.is_file()}
+
+
+def _check_hvc1(res, out: Path) -> None:
+    """Each rung's init segment carries an hvc1 sample entry whose hvcC
+    is the one the port's encoder writes for that rung (port readers)."""
+    from vlog_tpu_torch import config
+    from vlog_tpu_torch.codecs.hevc.api import HevcEncoder
+    from vlog_tpu_torch.media.mp4 import parse_mp4
+
+    for r in res.run.rungs:
+        (trk,) = parse_mp4(out / r.name / "init.mp4").tracks
+        want = HevcEncoder(width=r.width, height=r.height,
+                           deblock=config.HEVC_DEBLOCK, device="cpu")
+        if (trk.codec, trk.sample_entry_type, trk.width, trk.height) != \
+                ("hevc", "hvc1", r.width, r.height) \
+                or trk.codec_config != want.hvcc_config \
+                or r.codec_string != want.codec_string:
+            fail(f"hevc: {r.name}/init.mp4 holds {trk.sample_entry_type} "
+                 f"{trk.width}x{trk.height}, codec {r.codec_string}")
+
+
+def _hevc_padded_frames(src: Path, n: int):
+    """The first ``n`` frames of a Y4M, edge-padded to CTB alignment."""
+    from vlog_tpu_torch.media.y4m import Y4mReader
+
+    with Y4mReader(src) as reader:
+        frames = [reader.read_frame(i) for i in range(n)]
+    out = []
+    for k, block in ((0, 32), (1, 16), (2, 16)):
+        p = np.stack([f[k] for f in frames])
+        ph, pw = -p.shape[1] % block, -p.shape[2] % block
+        out.append(np.pad(p, ((0, 0), (0, ph), (0, pw)), mode="edge"))
+    return out
+
+
+def _hevc_integer_card_vs_cpu(src: Path) -> dict:
+    """The chain DSP (1 I + 2 P, deblock, the rate cascade) on CPU and
+    CUDA from the same padded 1080p frames."""
+    from vlog_tpu_torch import config
+    from vlog_tpu_torch.codecs.hevc.core import encode_chain_dsp
+
+    frames = _hevc_padded_frames(src, HEVC_INT_FRAMES)
+    # a budget the P frames overspend: the cascade moves the last QP
+    rc = {"budget": np.float32(200.0), "alpha": np.float32(1.0)}
+    got, secs = {}, {}
+    for dev in ("cpu", "cuda"):
+        t = lambda a: torch.as_tensor(a, device=dev)     # noqa: E731
+        t0 = time.perf_counter()
+        (intra, rec0), (p32, _, _, mvs, precons), rcout = encode_chain_dsp(
+            *(t(p[None]) for p in frames), config.MOTION_SEARCH_RADIUS,
+            t(np.array([28], np.int32)), t(np.array([[30, 30]], np.int32)),
+            False, True, rc)
+        named = {"i_levels": intra, "i_recon": rec0, "p_levels": p32,
+                 "p_recon": precons}
+        got[dev] = {f"{k}{i}": a.cpu().numpy() for k, arrs in named.items()
+                    for i, a in enumerate(arrs)}
+        got[dev].update(mv=mvs.cpu().numpy(),
+                        qp_eff=rcout["qp_eff"].cpu().numpy(),
+                        cost=rcout["cost"].cpu().numpy())
+        secs[dev] = round(time.perf_counter() - t0, 3)
+    ref, card = got["cpu"], got["cuda"]
+    bad = [k for k in ref if k != "cost" and not np.array_equal(ref[k], card[k])]
+    if (ref["qp_eff"] == 30).all():
+        fail(f"hevc: the rate cascade did not move a QP (costs {ref['cost']})")
+    if bad:
+        fail(f"hevc: integer stages differ between CPU and CUDA: {bad}")
+    rel = float(np.max(np.abs(card["cost"] - ref["cost"]) / np.abs(ref["cost"])))
+    if rel > HEVC_COST_RTOL:
+        fail(f"hevc: cost differs between devices: {ref['cost']} vs "
+             f"{card['cost']} (rel {rel:.2e})")
+    row = {"arrays_identical": len(ref) - 1, "qp_eff": ref["qp_eff"].tolist(),
+           "max_abs_mv_qpel": int(np.abs(ref["mv"]).max()),
+           "cost_rel_diff": rel, "seconds": secs}
+    log("hevc integer stages card vs CPU (1080p, 1 I + 2 P): " + json.dumps(row))
+    return row
+
+
+def _hevc_tree_card_vs_cpu(work: Path) -> None:
+    """A 640x360 source on its identity rung: the CMAF trees that
+    ``TorchBackend`` writes on CUDA and on the CPU are byte-identical."""
+    from vlog_tpu_torch.backends.torch_backend import TorchBackend
+    from vlog_tpu_torch.media.probe import get_video_info
+    from vlog_tpu_torch.media.y4m import write_y4m
+    from vlog_tpu_torch.ops import fused_resize
+
+    y, u, v = _smooth_frames(HEVC_TREE_FRAMES, HEVC_TREE_H, HEVC_TREE_W, seed=5)
+    src = work / "hevc_360p.y4m"
+    write_y4m(src, list(zip(y, u, v)), fps_num=24, fps_den=1)
+    info = get_video_info(src)
+    trees, secs = [], {}
+    saved = fused_resize.launches
+    for i, dev in enumerate(("cuda", "cpu")):
+        backend = TorchBackend(device=dev)
+        out = work / f"hevc_tree_{i}"
+        plan = backend.plan(info, out_dir=out, codec="h265", thumbnail=False)
+        if [(r.height, r.width) for r in plan.rungs] != [(HEVC_TREE_H, HEVC_TREE_W)]:
+            fail(f"hevc tree: plan rungs {plan.rungs}, want one identity rung")
+        t0 = time.perf_counter()
+        backend.run(plan)
+        secs[dev] = round(time.perf_counter() - t0, 3)
+        trees.append(_tree_files(out))
+    if fused_resize.launches != saved:
+        fail("hevc tree: the identity rung launched the resize kernel")
+    card, cpu = trees
+    differ = sorted(k for k in card.keys() | cpu.keys()
+                    if card.get(k) != cpu.get(k))
+    if differ:
+        fail(f"hevc tree: card and CPU trees differ: {differ}")
+    log(f"hevc tree card vs CPU ({HEVC_TREE_W}x{HEVC_TREE_H}, "
+        f"{HEVC_TREE_FRAMES} frames): {len(card)} files identical; "
+        f"seconds {json.dumps(secs)}")
+
+
+def _hevc_breakdown(src: Path) -> None:
+    """Where one 1080p HEVC frame's time goes: per device stage the wall
+    seconds (one synchronized call), then launches and device-busy share
+    of a second call under torch.profiler; host entropy of the I and one
+    P frame's levels (the C coder, one thread)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vlog_tpu_torch import config
+    from vlog_tpu_torch.codecs.h264.inter import edge_pad
+    from vlog_tpu_torch.codecs.hevc import core
+    from vlog_tpu_torch.codecs.hevc import deblock as dbk
+    from vlog_tpu_torch.codecs.hevc.api import encode_i_payload, encode_p_payload
+
+    dev = torch.device("cuda")
+    y, u, v = (torch.as_tensor(p, device=dev)
+               for p in _hevc_padded_frames(src, 2))
+    search = config.MOTION_SEARCH_RADIUS
+    pad = search + 8
+    qp = torch.tensor([30], dtype=torch.int32, device=dev)
+    qpc = core.chroma_qp_traced(qp)
+    rows, cols = y.shape[1] // 32, y.shape[2] // 32
+    (ly, lu, lv), raw = core.encode_frame_dsp(y[:1], u[:1], v[:1], qp)
+    ibv, ibh = dbk.intra_bs(rows, cols, dev)
+    ref = tuple(p.to(torch.uint8) for p in dbk.deblock_picture(
+        *raw, qp=qp, qpc=qpc, bs_v=ibv, bs_h=ibh, chroma=True))
+    cur = y[1:].to(torch.int32)
+
+    def ref_planes():
+        refp = edge_pad(ref[0].to(torch.int32), pad, pad, pad, pad)
+        return refp, core._hfiltered_planes(refp, core._LTAPS)
+
+    refp, hplanes = ref_planes()
+    mv_int, c_int = core._integer_search(cur, refp, search=search, pad=pad)
+    mv, _ = core._subpel_refine(cur, hplanes, mv_int, c_int, pad=pad)
+    part = torch.zeros((1, rows, cols), dtype=torch.int32, device=dev)
+
+    def residual():
+        return core._p_residuals_and_recon(
+            y[1:], u[1:], v[1:], cur, hplanes, core._rep(mv, 2), part, qp,
+            qpc, pad, search, ref[1], ref[2], partitions=False)
+
+    p_out = residual()
+    stages = {
+        "intra_encode": lambda: core.encode_frame_dsp(y[:1], u[:1], v[:1], qp),
+        "intra_deblock": lambda: dbk.deblock_picture(
+            *raw, qp=qp, qpc=qpc, bs_v=ibv, bs_h=ibh, chroma=True),
+        "p_ref_planes": ref_planes,
+        "p_integer_me": lambda: core._integer_search(cur, refp, search=search,
+                                                     pad=pad),
+        "p_subpel_refine": lambda: core._subpel_refine(cur, hplanes, mv_int,
+                                                       c_int, pad=pad),
+        "p_mc_and_residual": residual,
+        "p_deblock": lambda: core._deblock_p(p_out, qp, qpc),
+    }
+    rows_out = {}
+    for name, fn in stages.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - t0
+        kernels = _raw_kernels(prof)
+        busy = sum(us for _, us in kernels) / 1e6
+        rows_out[name] = {"s": round(wall, 4), "launches": len(kernels),
+                          "device_busy_s": round(busy, 4),
+                          "busy_share": (round(busy / prof_wall, 4)
+                                         if kernels else "not measured")}
+    host_i = [a[0].cpu().numpy() for a in (ly, lu, lv)]
+    host_p = [a[0].cpu().numpy() for a in p_out[0]]
+    mv_cells = p_out[3][0].cpu().numpy()
+    for name, fn in (
+            ("host_entropy_i", lambda: encode_i_payload(*host_i, rows, cols, 30)),
+            ("host_entropy_p", lambda: encode_p_payload(*host_p, mv_cells, rows,
+                                                        cols, 30))):
+        t0 = time.perf_counter()
+        nbytes = len(fn())
+        rows_out[name] = {"s": round(time.perf_counter() - t0, 4),
+                          "bytes": nbytes}
+    log("hevc breakdown 1080p frame " + json.dumps(rows_out))
+
+
+def phase_hevc(src: Path, work: Path) -> int:
+    """``codec="h265"`` through ``process_video`` on the card; then the
+    integer stages and a whole tree card vs CPU, and the breakdown."""
+    from vlog_tpu_torch.backends import get_backend
+    from vlog_tpu_torch.media.probe import get_video_info
+    from vlog_tpu_torch.ops import fused_resize
+    from vlog_tpu_torch.storage import integrity
+    from vlog_tpu_torch.worker import process_video
+
+    out = work / "hevc"
+    backend = get_backend("torch")
+    if backend.device.type != "cuda":
+        fail(f"hevc: get_backend('torch') runs on {backend.device}")
+    plan = backend.plan(get_video_info(src), out_dir=out, codec="h265")
+    dispatches = len(_frames_per_call(plan, "hevc", FRAMES))
+    scaled = sum(1 for r in plan.rungs if (r.height, r.width) != (SRC_H, SRC_W))
+    log("hevc plan: " + ", ".join(f"{r.name} {r.width}x{r.height} qp{r.qp} "
+                                  f"{r.codec}" for r in plan.rungs)
+        + f"; gop {plan.gop_len}, frame_batch {plan.frame_batch}")
+    fused_resize.launches = 0
+    t0 = time.perf_counter()
+    res = process_video(src, out, backend=backend, codec="h265")
+    wall = time.perf_counter() - t0
+    launches = fused_resize.launches
+    expected = (scaled * 3 * dispatches + 3) * fused_resize.LAUNCHES_PER_CALL
+    if launches != expected:
+        fail(f"hevc: kernel launches {launches}, expected {expected}")
+    log(f"hevc: {res.run.frames_processed} frames in {wall:.2f}s wall; stage_s "
+        + json.dumps(res.run.stage_s) + f"; kernel launches {launches}")
+    _log_steps("hevc", res)
+    _check_rungs(res.run, out, FRAMES)
+    _check_hvc1(res, out)
+    master = (out / "master.m3u8").read_text()
+    if "hvc1." not in master or "avc1" in master \
+            or not all(q["codec_string"].startswith("hvc1.") for q in res.qualities):
+        fail("hevc: master.m3u8 or the qualities rows lack the hvc1 codecs")
+    files = integrity.load_manifest(out)
+    problems = integrity.verify_tree(out, files or {})
+    if not files or problems:
+        fail(f"hevc: outputs.json does not verify the tree: {problems}")
+    log(f"hevc: {len(files)} files in outputs.json verified; qualities "
+        + json.dumps(res.qualities))
+    _hevc_integer_card_vs_cpu(src)
+    _hevc_tree_card_vs_cpu(work)
+    _hevc_breakdown(src)
+    return launches
+
+
 # ---------------------------------------------------------------------------
 # ASR: Whisper at whisper-small width (random weights from ASR_SEED, a
 # synthetic byte-level vocabulary at whisper-small's special-token ids)
@@ -1652,6 +1924,7 @@ def main() -> int:
     launches["sprites"] = timed("sprites", phase_sprites, work, ip_path, seq)
     launches["resume"] = timed("resume", phase_resume, sources[RESUME_FRAMES])
     launches["ts"] = timed("ts", phase_ts, sources[TS_FRAMES])
+    launches["hevc"] = timed("hevc", phase_hevc, sources[FRAMES], work)
     timed("asr", phase_asr, work)       # fails on any resize launch
     launches["asr"] = 0
     shutil.rmtree(work, ignore_errors=True)

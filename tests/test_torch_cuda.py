@@ -1,6 +1,7 @@
 """Card-only tests of the PyTorch port: the CUDA resize kernel against
 its plain version (the ladder's shapes and the sprite tiles'), the
 integer stages and the decoder's device functions on CUDA against the
+CPU, the HEVC chain program and deblocking filter on CUDA against the
 CPU, the sprite worker, Whisper, the AAC encoder and ``process_video``
 on the card.
 
@@ -429,3 +430,71 @@ def test_process_video_on_the_card(cuda, tmp_path, monkeypatch):
                                              "codec_string", "audio_bitrate",
                                              "segment_count")} for r in rows]
     assert strip(card.qualities) == strip(host.qualities)
+
+
+def test_hevc_chain_program_cpu_and_cuda_identical(cuda):  # slowlane-ok: one 96x128 rung
+    """The HEVC ladder step on an identity rung (no resize), deblock and
+    the rate cascade on: levels, MVs, ``qp_eff`` identical on CPU and
+    CUDA (``sse_y`` and ``cost``, float32 sums, within 1e-5); the chain
+    DSP's reconstructions too."""
+    import chip_smoke
+    from vlog_tpu_torch.codecs.hevc.core import encode_chain_dsp
+    from vlog_tpu_torch.parallel.hevc_ladder import hevc_chain_ladder_program
+
+    y, u, v = (p.reshape((2, 3) + p.shape[1:])
+               for p in chip_smoke._smooth_frames(6, 96, 128, seed=4))
+    rungs = (("96p", 96, 128, 28),)
+    qps = {"96p": np.array([[28, 29, 30], [34, 33, 35]], np.int32)}
+    rc = {"96p": {"budget": np.float32(200.0), "alpha": np.float32(0.4)}}
+    outs, recons = {}, {}
+    for dev in ("cpu", cuda):
+        planes = [torch.as_tensor(p, device=dev) for p in (y, u, v)]
+        fn, mats = hevc_chain_ladder_program(rungs, 96, 128, search=8,
+                                             deblock=True, device=dev)
+        outs[str(dev)] = {k: t.cpu().numpy() for k, t in
+                          fn(*planes, mats, qps, rc)["96p"].items()}
+        q = torch.as_tensor(qps["96p"], device=dev)
+        res = encode_chain_dsp(*planes, 8, q[:, 0] - 2, q[:, 1:], True, True,
+                               rc["96p"])
+        recons[str(dev)] = [t.cpu().numpy() for t in res[0][1] + res[1][4]]
+    for k, want in outs["cpu"].items():
+        if k in ("sse_y", "cost"):
+            np.testing.assert_allclose(outs["cuda"][k], want, rtol=1e-5)
+        else:
+            np.testing.assert_array_equal(outs["cuda"][k], want, err_msg=k)
+    for a, b in zip(recons["cpu"], recons["cuda"]):
+        np.testing.assert_array_equal(a, b)
+
+
+def test_hevc_deblock_picture_cpu_and_cuda_identical(cuda):
+    """Spec 8.7.2 on the card: intra (luma and chroma) and P boundary
+    strengths from random partitions, cbf and MVs."""
+    from vlog_tpu_torch.codecs.hevc import deblock as dbk
+
+    rng = np.random.default_rng(9)
+    n, rr, cc = 2, 3, 4
+    h, w = 32 * rr, 32 * cc
+
+    def blocky(hh, ww, cell):
+        base = np.kron(rng.integers(50, 206, (n, hh // cell, ww // cell)),
+                       np.ones((1, cell, cell)))
+        return np.clip(base + rng.integers(-2, 3, (n, hh, ww)), 0, 255
+                       ).astype(np.int32)
+
+    y, u, v = blocky(h, w, 8), blocky(h // 2, w // 2, 8), blocky(h // 2, w // 2, 4)
+    part = rng.integers(0, 3, (n, rr, cc)).astype(np.int32)
+    cbf = rng.random((n, 2 * rr, 2 * cc)) < 0.5
+    mv = rng.integers(-6, 7, (n, 2 * rr, 2 * cc, 2)).astype(np.int32)
+    outs = {}
+    for dev in ("cpu", cuda):
+        t = lambda a: torch.as_tensor(a, device=dev)    # noqa: E731
+        qp, qpc = t(np.array([30, 45], np.int32)), t(np.array([29, 39], np.int32))
+        ibv, ibh = dbk.intra_bs(rr, cc, dev)
+        pbv, pbh = dbk.p_bs(t(part), t(cbf), t(mv))
+        got = dbk.deblock_picture(t(y), t(u), t(v), qp=qp, qpc=qpc, bs_v=ibv,
+                                  bs_h=ibh, chroma=True)
+        got += dbk.deblock_picture(t(y), t(u), t(v), qp=qp, qpc=qpc, bs_v=pbv,
+                                   bs_h=pbh, chroma=False)
+        outs[str(dev)] = [a.cpu().numpy() for a in got + (pbv, pbh)]
+    for a, b in zip(outs["cpu"], outs["cuda"]):
+        np.testing.assert_array_equal(a, b)

@@ -20,6 +20,8 @@ from vlog_tpu_torch.media.probe import VideoInfo
 
 # progress callback: (done, total, message)
 ProgressFn = Callable[[int, int, str], None]
+# the first frame's JPEG at the root of every ladder tree
+THUMBNAIL_NAME = "thumbnail.jpg"
 
 
 @dataclass(frozen=True)

@@ -30,7 +30,8 @@ real frames fill fewer chains than the batch holds (the source's tail)
 encodes only the chains that hold real frames, and a lone partial chain
 only up to its last real frame: the JAX program encodes the replicated
 padding too and drops it, so the written bytes are the same.
-Not ported: HEVC, AV1.
+``codec="h265"`` (or ``"hevc"``) runs the HEVC ladder instead
+(backends/hevc_path.py, CMAF only); AV1 is not ported.
 """
 
 from __future__ import annotations
@@ -49,9 +50,11 @@ from vlog_tpu_torch.backends.base import (
     ExecutionPlan,
     RungResult,
     RunResult,
+    THUMBNAIL_NAME,
     plan_rung_geometry,
     register_backend,
 )
+from vlog_tpu_torch.backends.hevc_path import run_hevc
 from vlog_tpu_torch.backends.rate_control import RateController
 from vlog_tpu_torch.backends.source import open_source
 from vlog_tpu_torch.codecs.h264.api import H264Encoder
@@ -80,11 +83,11 @@ _CHAIN_KEYS = ("i_luma_dc", "i_luma_ac", "i_chroma_dc", "i_chroma_ac",
                "p_luma", "p_chroma_dc", "p_chroma_ac", "mv", "sse_y",
                "qp_eff", "cost")
 _INTRA_KEYS = ("luma_dc", "luma_ac", "chroma_dc", "chroma_ac", "sse_y")
-THUMBNAIL_NAME = "thumbnail.jpg"
 
 
 class TorchBackend:
-    """Runs the one-pass H.264 ladder on one device (default ``"cuda"``)."""
+    """Runs the one-pass H.264 or HEVC ladder on one device (default
+    ``"cuda"``)."""
 
     name = "torch"
 
@@ -114,16 +117,20 @@ class TorchBackend:
         if rungs is None:
             rungs = config.ladder_for_source(source.height)
         codec = opts.get("codec", "h264")
-        if codec != "h264":
-            raise ValueError(f"codec {codec!r} is not ported (H.264 only)")
+        if codec == "hevc":
+            codec = "h265"
+        if codec == "av1":
+            raise ValueError("codec 'av1' is not ported (H.264 and HEVC only)")
+        if codec not in ("h264", "h265"):
+            raise ValueError(f"unknown codec {codec!r}")
         fmt = opts.get("streaming_format", config.STREAMING_FORMAT)
         if fmt not in ("cmaf", "hls_ts"):
             raise ValueError(f"unknown streaming format {fmt!r}")
         gop_mode = opts.get("gop_mode", config.GOP_MODE)
         if gop_mode not in ("p", "intra"):
             raise ValueError(f"unknown gop_mode {gop_mode!r}")
-        planned = tuple(plan_rung_geometry(source.width, source.height, r)
-                        for r in rungs)
+        planned = tuple(plan_rung_geometry(source.width, source.height, r,
+                                           codec=codec) for r in rungs)
         fps_num, fps_den = fps_to_fraction(source.fps or 30.0)
         seg_s = opts.get("segment_duration_s", config.SEGMENT_DURATION_S)
         frames_per_seg = max(1, round(seg_s * fps_num / fps_den))
@@ -153,6 +160,8 @@ class TorchBackend:
             resume: bool = True) -> RunResult:
         failpoints.hit("backend.encode")    # chaos: simulated device fault
         t0 = time.monotonic()
+        if any(r.codec == "h265" for r in plan.rungs):
+            return run_hevc(self, plan, progress_cb, resume, t0)
         dev = self.device
         out = plan.out_dir
         out.mkdir(parents=True, exist_ok=True)
@@ -487,12 +496,33 @@ class TorchBackend:
         # the frames actually decoded
         true_total = total if src.exact_seek else frames_done
         duration_s = true_total / fps if fps else 0.0
+        results, variants = self._publish(plan, encoders, seg_durs,
+                                          bytes_written, psnr_acc,
+                                          duration_s, audio_by_rate)
+        return RunResult(
+            rungs=results, frames_processed=frames_done,
+            duration_s=duration_s, thumbnail_path=thumb_path,
+            wall_s=time.monotonic() - t0, variants=variants, fps=fps,
+            segment_duration_s=plan.segment_duration_s,
+            stage_s={k: round(v, 3) for k, v in prof.items()},
+            gop_len=clen, resumed_segments=start_segment * len(plan.rungs))
+
+    @staticmethod
+    def _publish(plan, encoders, seg_durs, bytes_written, psnr_acc,
+                 duration_s: float, audio_by_rate=None):
+        """Write each rung's media playlist, ``master.m3u8`` and (CMAF)
+        ``manifest.mpd``; returns the rung results and the variants."""
+        out = plan.out_dir
+        fps = plan.fps_num / plan.fps_den
+        ts_mode = plan.streaming_format == "hls_ts"
+        audio_by_rate = audio_by_rate or {}
         results, variants = [], []
         for rung in plan.rungs:
             name = rung.name
             enc = encoders[name]
             playlist = hls.media_playlist(
-                [hls.SegmentRef(uri=f"segment_{i + 1:05d}.{seg_ext}",
+                [hls.SegmentRef(uri=f"segment_{i + 1:05d}."
+                                    f"{'ts' if ts_mode else 'm4s'}",
                                 duration_s=d)
                  for i, d in enumerate(seg_durs[name])],
                 target_duration_s=plan.segment_duration_s,
@@ -530,13 +560,7 @@ class TorchBackend:
             atomic_write_text(out / "manifest.mpd", hls.dash_manifest(
                 variants, duration_s=duration_s,
                 segment_duration_s=plan.segment_duration_s))
-        return RunResult(
-            rungs=results, frames_processed=frames_done,
-            duration_s=duration_s, thumbnail_path=thumb_path,
-            wall_s=time.monotonic() - t0, variants=variants, fps=fps,
-            segment_duration_s=plan.segment_duration_s,
-            stage_s={k: round(v, 3) for k, v in prof.items()},
-            gop_len=clen, resumed_segments=start_segment * len(plan.rungs))
+        return results, variants
 
     # ------------------------------------------------------------------
     def _scan_resume_candidates(self, plan, out, init_matched

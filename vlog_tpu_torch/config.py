@@ -4,8 +4,8 @@ Same ``VLOG_*`` names and defaults as the JAX package's config (ladder,
 GOP structure, entropy, deblocking, search radius, batch and pipeline
 depth, sprite sheets, transcription), so one environment configures
 both. Only what the port's H.264 paths (I+P or intra-only, CMAF or
-MPEG-TS), its pipeline, its sprite worker and its transcription worker
-read is here.
+MPEG-TS), its HEVC path, its pipeline, its sprite worker and its
+transcription worker read is here.
 """
 
 from __future__ import annotations
@@ -105,6 +105,15 @@ MOTION_SEARCH_RADIUS: int = _env_int("VLOG_MOTION_SEARCH", 8, lo=1, hi=32)
 # "cabac" (Main profile) or "cavlc" (Baseline)
 H264_ENTROPY: str = _env_str("VLOG_H264_ENTROPY", "cabac")
 H264_DEBLOCK: bool = _env_bool("VLOG_H264_DEBLOCK", True)
+# HEVC (codec="h265"): 2NxN/Nx2N inter partitions (opt-in; partitioned
+# slices entropy-code in Python) and spec-8.7.2 in-loop deblocking.
+HEVC_PARTITIONS: bool = _env_bool("VLOG_HEVC_PARTITIONS", False)
+HEVC_DEBLOCK: bool = _env_bool("VLOG_HEVC_DEBLOCK", True)
+# Host threads for per-frame HEVC entropy coding (the C coder releases
+# the GIL).
+ENTROPY_THREADS: int = _env_int(
+    "VLOG_ENTROPY_THREADS", max(2, min(32, os.cpu_count() or 8)),
+    lo=1, hi=256)
 TPU_FRAME_BATCH: int = _env_int("VLOG_TPU_FRAME_BATCH", 8, lo=1, hi=256)
 PIPELINE_DEPTH: int = _env_int("VLOG_PIPELINE_DEPTH", 2, lo=1, hi=16)
 

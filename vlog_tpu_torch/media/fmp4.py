@@ -1,6 +1,6 @@
 """ISO-BMFF muxing: CMAF fMP4 (init segment + media segments) and
-progressive MP4 (the subset of ``vlog_tpu/media/fmp4.py`` the H.264
-ladder writer, the AAC renditions and the MP4 sources need).
+progressive MP4 (the subset of ``vlog_tpu/media/fmp4.py`` the H.264 and
+HEVC ladder writers, the AAC renditions and the MP4 sources need).
 
 One track per CMAF file, fixed timescale, movie fragments with one trun.
 """
@@ -47,6 +47,26 @@ def avc1_sample_entry(width: int, height: int, avcc: bytes) -> bytes:
         u16(0x0018),                # depth = 24
         struct.pack(">h", -1),      # pre_defined
         box("avcC", avcc),
+    )
+
+
+def hvc1_sample_entry(width: int, height: int, hvcc: bytes) -> bytes:
+    """hvc1 + hvcC (ISO 14496-15 8.4.1): parameter sets live in hvcC
+    only, matching the avc1 convention above. ``hvcc`` comes from
+    codecs/hevc/api.py::hvcc_config."""
+    return box(
+        "hvc1",
+        b"\x00" * 6 + u16(1),       # reserved + data_reference_index
+        u16(0) + u16(0),            # pre_defined + reserved
+        b"\x00" * 12,               # pre_defined
+        u16(width) + u16(height),
+        u32(0x00480000) * 2,        # 72 dpi horiz/vert
+        u32(0),                     # reserved
+        u16(1),                     # frame_count
+        b"\x00" * 32,               # compressorname
+        u16(0x0018),                # depth = 24
+        struct.pack(">h", -1),      # pre_defined
+        box("hvcC", hvcc),
     )
 
 

@@ -1,9 +1,10 @@
 """Build and load the native entropy coders (ctypes): H.264 CABAC and
-CAVLC slice data, NAL emulation prevention, the JPEG scan packer.
+CAVLC slice data, HEVC CABAC I and P slice data, NAL emulation
+prevention, the JPEG scan packer.
 
 Sources are verbatim copies of the JAX package's C coders:
 ``h264_cabac_enc.c`` with ``cabac_engine.h``, ``cavlc.c`` (which also
-holds ``vt_escape_emulation``) and ``jpeg_pack.c``. The three ``*.inc``
+holds ``vt_escape_emulation``), ``hevc_cabac.c`` and ``jpeg_pack.c``. The three ``*.inc``
 table headers are committed as generated by
 ``vlog_tpu/native/gen_tables.py``, ``gen_h264_cabac_tables.py`` and
 ``gen_hevc_tables.py`` (each file's first line names its generator).
@@ -28,7 +29,7 @@ from pathlib import Path
 
 _DIR = Path(__file__).resolve().parent
 _BUILD = _DIR.parent / "_build"
-_SOURCES = ("h264_cabac_enc.c", "cavlc.c", "jpeg_pack.c")
+_SOURCES = ("h264_cabac_enc.c", "cavlc.c", "hevc_cabac.c", "jpeg_pack.c")
 _DEPS = _SOURCES + ("cabac_engine.h", "cavlc_tables.inc",
                     "h264_cabac_tables.inc", "hevc_tables.inc")
 _LOCK = threading.Lock()
@@ -48,6 +49,7 @@ def _compile() -> Path:
     tmp = _BUILD / f"libvt_native.{os.getpid()}.so.tmp"
     cc = os.environ.get("CXX", "g++")
     cmd = [cc, "-O3", "-fPIC", "-shared", "-x", "c++",
+           '-DVT_HEVC_TABLES_INC="hevc_tables.inc"',
            *(str(_DIR / s) for s in _SOURCES), "-I", str(_DIR), "-o", str(tmp)]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
@@ -99,6 +101,23 @@ def get_lib() -> ctypes.CDLL:
                 i32,                                 # scratch
                 u8, ctypes.c_int64,                  # out buffer
             ]
+        i16 = ctypes.POINTER(ctypes.c_int16)
+        lib.vt_hevc_encode_slice.restype = ctypes.c_int64
+        lib.vt_hevc_encode_slice.argtypes = [
+            i16, i16, i16,                           # luma, cb, cr levels
+            ctypes.c_int32, ctypes.c_int32,          # rows, cols
+            ctypes.c_int32,                          # slice qp
+            u8, ctypes.c_int64,                      # out buffer
+        ]
+        lib.vt_hevc_encode_p_slice.restype = ctypes.c_int64
+        lib.vt_hevc_encode_p_slice.argtypes = [
+            i16, i16, i16,                           # luma, cb, cr levels
+            i32,                                     # mv (y, x) quarter pels
+            ctypes.c_int32, ctypes.c_int32,          # rows, cols
+            ctypes.c_int32,                          # slice qp
+            i32,                                     # mv scratch
+            u8, ctypes.c_int64,                      # out buffer
+        ]
         _LIB = lib
         return _LIB
 
