@@ -24,9 +24,12 @@ Phases (any failure exits non-zero; none is caught):
    it; the card's clocks, temperature and power before and after;
 4. the integer stages (intra, P, deblock) on CPU and on CUDA from the
    same uint8 frames: levels, MVs and reconstructions must be identical;
-5. the slice: a seeded synthetic 1920x1080 Y4M through
-   ``TorchBackend(device="cuda").plan/run`` with the defaults (default
-   ladder, thumbnail, resume); the CMAF tree must parse with the port's
+5. the slice: the first 12 frames of a seeded synthetic 1920x1080 Y4M
+   through ``TorchBackend(device="cuda").plan/run`` with the defaults
+   (default ladder, thumbnail, resume, the executor at depth 2: one
+   24-frame chain cut to 12 frames, one dispatch); ``stage_s`` must hold
+   the reference's stage keys and the executor's gauges
+   (``max_in_flight`` >= 1); the CMAF tree must parse with the port's
    own readers, the kernel's launch counter must rise by 3 scaled rungs
    x 3 planes x 1 launch per dispatch plus 3 for the thumbnail, each
    rung's mean PSNR-Y must clear a floor, the journal must hold one line
@@ -66,11 +69,13 @@ Phases (any failure exits non-zero; none is caught):
    run's sampled frames equal to the mp4 run's;
 9. resume: the same source, the 360p rung, 12 frames, 0.25 s segments
    and one 6-frame chain per dispatch (two dispatches): an uninterrupted
-   run, and a run stopped after dispatch 1 by its ``progress_cb`` and
-   then resumed; the two trees must be identical, journal included;
+   run, and a run stopped after dispatch 1 by its ``progress_cb`` (at
+   depth 2 the executor may have queued dispatch 2 by then; the launch
+   count allows for it) and then resumed; the two trees must be
+   identical, journal included;
 10. MPEG-TS: the same source and rung, 6 frames (one 0.25 s segment),
    ``hls_ts``: whole 188-byte packets, one video PES per frame;
-10a. hevc: the slice's source through ``process_video(src, out,
+10a. hevc: the 24-frame source through ``process_video(src, out,
    backend=get_backend("torch"), codec="h265")`` with the defaults (the
    4-rung ladder, one 24-frame I+P chain in one dispatch, deblocking,
    rate control, thumbnail): 12 launches (9 + 3 for the thumbnail), the
@@ -93,6 +98,26 @@ Phases (any failure exits non-zero; none is caught):
    everything after the MDCT per audio second; ``forward_mdct`` alone on
    a 30 s chunk ((2, 1408, 2048) x (2048, 1024) float32, TF32 off),
    device ms against its bound; no resize launch;
+10c. runtime (the device runtime): HEVC on the 24-frame source at
+   depths 1, 2 and 3 (``VLOG_PIPELINE_DEPTH``) with the 4-rung ladder at
+   constant QP in four 6-frame dispatches: byte-identical trees (the
+   journal and ``outputs.json`` aside), 36 launches each, wall and
+   ``stage_s`` per depth; H.264 on the resume phase's 360p rung at
+   constant QP (12 frames, two dispatches) at depths 1 and 2: identical
+   trees, depth 2 reaching ``max_in_flight`` 2; ``backend.pull`` armed
+   once (its second hit) at depth 2: the run raises, no ``vlog-pipe*`` or
+   ``vlog-decode*`` thread is left, the resumed run writes the
+   uninterrupted tree; a ``MeshScheduler`` over the card with one slot:
+   an HEVC ``process_video`` under a lease (given a CPU backend, it runs
+   on the lease's card: 12 launches) and a ``transcribe_video`` through
+   an ``AsrEngine`` given the scheduler (a tiny random-weight Whisper,
+   35 s of audio) run one after the other on width-1 leases, capacity
+   returns to 1, a fault at threshold 1 quarantines the card (slots 0)
+   and the CUDA probe reinstates it; a 1 s ``DeviceProfiler`` session
+   started on the main thread around an HEVC run on another thread: the
+   Chrome trace names the resize kernel; ``compile_seconds()`` of the
+   build phase (cold) and of a fresh process on the warm build
+   directory (0);
 11. asr: Whisper at whisper-small width (seeded random weights, a
    synthetic vocabulary at whisper-small's special-token ids, written as
    a checkpoint directory) on a seeded 100 s WAV of voiced-like bursts
@@ -153,6 +178,7 @@ THUMB_MAX_BLOCK_SHARE = 1e-3
 
 SRC_H, SRC_W = 1080, 1920
 FRAMES = 24             # one full 24-frame I+P chain: one dispatch
+SLICE_FRAMES = 12       # the slice: one I+P chain cut to 12 frames
 INTRA_FRAMES = 8        # one intra dispatch (frame_batch 8)
 MP4_FRAMES = 4          # samples of the I+P MP4 (1 IDR + 3 P: a cut chain)
 SEEK_FRAME = 3          # read mid-GOP on a fresh source
@@ -166,12 +192,13 @@ L2_FLUSH_BYTES = 256 << 20   # > the 50 MB L2: each profiled call starts cold
 CLOCKS_QUERY = ("--query-gpu=clocks.sm,clocks.mem,clocks.max.sm,"
                 "temperature.gpu,power.draw")
 RUNG_SHAPES = ((720, 1280), (480, 854), (360, 640))
-# Frames per kernel call on the driven paths: a 24-frame chain (slice),
-# an intra dispatch, a 6-frame chain (resume, ts), the MP4's cut 4-frame
-# chain, the thumbnail's one frame (the 720p rung's shapes). The
+# Frames per kernel call on the driven paths: a 24-frame chain (hevc,
+# the scheduler's HEVC job), the slice's chain cut to 12 frames, an
+# intra dispatch, a 6-frame chain (resume, ts, runtime), the MP4's cut
+# 4-frame chain, the thumbnail's one frame (the 720p rung's shapes). The
 # kernel phase holds the kernel to its plain version at each; every
 # backend phase checks that its plan calls with one.
-COMPARE_N = (FRAMES, INTRA_FRAMES, SHORT_BATCH, MP4_FRAMES, 1)
+COMPARE_N = (FRAMES, SLICE_FRAMES, INTRA_FRAMES, SHORT_BATCH, MP4_FRAMES, 1)
 # Sprite tiles (the default 160x90) of the 1080p sources, at the frames
 # per call of the sprite phase's two runs: a full decode chunk of 8 and
 # the skipping run's 2 tiles.
@@ -672,7 +699,7 @@ def phase_slice(src: Path) -> int:
                                    f"{r.video_bitrate}bps" for r in plan.rungs)
         + f"; gop {plan.gop_len}, frame_batch {plan.frame_batch}, "
         f"thumbnail {plan.thumbnail}")
-    dispatches = len(_frames_per_call(plan, "slice", FRAMES))
+    dispatches = len(_frames_per_call(plan, "slice", SLICE_FRAMES))
     scaled = sum(1 for r in plan.rungs
                  if (r.height, r.width) != (SRC_H, SRC_W))
     thumb_launches = 3 * fused_resize.LAUNCHES_PER_CALL   # Y, U, V once
@@ -690,9 +717,10 @@ def phase_slice(src: Path) -> int:
              f"dispatches + {thumb_launches} for the thumbnail)")
     log(f"slice: {res.frames_processed} frames in {wall:.2f}s wall; stage_s "
         + json.dumps(res.stage_s) + f"; kernel launches {launches}")
+    _check_stage_s("slice", res.stage_s)
     if not (out / "manifest.mpd").read_text().startswith("<?xml"):
         fail("manifest.mpd malformed")
-    _check_rungs(res, out, FRAMES)
+    _check_rungs(res, out, SLICE_FRAMES)
     journal = (out / "rc_journal.jsonl").read_text().splitlines()
     if len(journal) != 1 + dispatches or json.loads(journal[0])["v"] != 1:
         fail(f"rc_journal.jsonl has {len(journal)} lines, want 1 + {dispatches}")
@@ -1250,10 +1278,14 @@ def phase_resume(src: Path) -> int:
         if done >= per_call[0]:
             raise _Stop(msg)
 
+    per_dispatch = 3 * fused_resize.LAUNCHES_PER_CALL
     fused_resize.launches = 0
     t0 = time.perf_counter()
     backend.run(plan_for(whole), resume=False)
     t_whole = time.perf_counter() - t0
+    if fused_resize.launches != 2 * per_dispatch:
+        fail(f"resume: {fused_resize.launches} launches uninterrupted, "
+             f"want {2 * per_dispatch}")
     t0 = time.perf_counter()
     try:
         backend.run(plan_for(cut), progress_cb=stop_after_first, resume=False)
@@ -1261,12 +1293,18 @@ def phase_resume(src: Path) -> int:
     except _Stop:
         pass
     t_cut = time.perf_counter() - t0
+    # at depth 2 the executor may have queued dispatch 2 before dispatch
+    # 1's progress callback stopped the run (its consumers skip it)
+    cut_launches = fused_resize.launches - 2 * per_dispatch
+    if cut_launches not in (per_dispatch, 2 * per_dispatch):
+        fail(f"resume: {cut_launches} launches in the stopped run")
     t0 = time.perf_counter()
     res = backend.run(plan_for(cut), resume=True)
     t_resumed = time.perf_counter() - t0
     launches = fused_resize.launches
-    if launches != 4 * 3 * fused_resize.LAUNCHES_PER_CALL:
-        fail(f"resume: kernel launches {launches}, expected 12 (4 dispatches)")
+    if launches != (3 * per_dispatch + cut_launches):
+        fail(f"resume: kernel launches {launches}, expected "
+             f"{3 * per_dispatch + cut_launches}")
     if res.resumed_segments != 1:
         fail(f"resume: resumed_segments {res.resumed_segments}, want 1")
     files = {p.relative_to(whole): p.read_bytes()
@@ -1556,6 +1594,7 @@ def phase_hevc(src: Path, work: Path) -> int:
         fail(f"hevc: kernel launches {launches}, expected {expected}")
     log(f"hevc: {res.run.frames_processed} frames in {wall:.2f}s wall; stage_s "
         + json.dumps(res.run.stage_s) + f"; kernel launches {launches}")
+    _check_stage_s("hevc", res.run.stage_s)
     _log_steps("hevc", res)
     _check_rungs(res.run, out, FRAMES)
     _check_hvc1(res, out)
@@ -1881,6 +1920,373 @@ def phase_asr(work: Path) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# The device runtime: the executor at several depths, its failpoint drain,
+# the mesh scheduler on the card, the profiler, the compile meter
+RUNTIME_HEVC_DEPTHS = (1, 2, 3)
+RUNTIME_H264_DEPTHS = (1, 2)
+RUNTIME_TREE_SKIP = ("rc_journal.jsonl", "outputs.json")   # run state
+PROFILE_SESSION_S = 1.0
+TINY_WHISPER = dict(d_model=64, encoder_layers=1, decoder_layers=1,
+                    encoder_attention_heads=2, decoder_attention_heads=2,
+                    encoder_ffn_dim=128, decoder_ffn_dim=128,
+                    vocab_size=51865)
+SCHED_WAV_S = 35.0        # two 30 s windows (5 s overlap)
+
+
+def _runtime_tree(out: Path) -> dict[str, bytes]:
+    return {str(p.relative_to(out)): p.read_bytes()
+            for p in sorted(out.rglob("*"))
+            if p.is_file() and p.name not in RUNTIME_TREE_SKIP}
+
+
+def _tree_diff(a: dict, b: dict) -> list[str]:
+    return sorted(k for k in a.keys() | b.keys() if a.get(k) != b.get(k))
+
+
+def _check_stage_s(name: str, stage_s: dict) -> dict:
+    """The reference's stage keys and the executor's gauges are there;
+    returns the gauges."""
+    from vlog_tpu_torch.obs.trace import STAGE_KEYS
+
+    gauges = ("pipeline_depth", "max_in_flight", "host_busy_s",
+              "host_wall_s", "host_occupancy")
+    missing = [k for k in STAGE_KEYS + gauges + ("pad_frames",)
+               if k not in stage_s]
+    if missing:
+        fail(f"{name}: stage_s lacks {missing}")
+    if not 1 <= stage_s["max_in_flight"] <= stage_s["pipeline_depth"]:
+        fail(f"{name}: max_in_flight {stage_s['max_in_flight']} outside "
+             f"1..{stage_s['pipeline_depth']}")
+    return {k: stage_s[k] for k in gauges}
+
+
+def _at_depth(depth: int, fn, *args, **kw):
+    from vlog_tpu_torch import config
+
+    saved = config.PIPELINE_DEPTH
+    config.PIPELINE_DEPTH = depth
+    try:
+        return fn(*args, **kw)
+    finally:
+        config.PIPELINE_DEPTH = saved
+
+
+def _runtime_depths(backend, plan_for, depths, name: str, launches_per_run: int,
+                    work: Path) -> tuple[dict, dict]:
+    """The same plan at each depth: trees identical, launches exact;
+    returns the tree and {depth: numbers}."""
+    from vlog_tpu_torch.ops import fused_resize
+
+    ref, rows = None, {}
+    for depth in depths:
+        out = work / f"rt_{name}_d{depth}"
+        fused_resize.launches = 0
+        t0 = time.perf_counter()
+        res = _at_depth(depth, backend.run, plan_for(out), resume=False)
+        wall = time.perf_counter() - t0
+        if fused_resize.launches != launches_per_run:
+            fail(f"runtime {name} depth {depth}: {fused_resize.launches} "
+                 f"launches, want {launches_per_run}")
+        g = _check_stage_s(f"runtime {name} depth {depth}", res.stage_s)
+        if g["pipeline_depth"] != depth:
+            fail(f"runtime {name}: pipeline_depth {g['pipeline_depth']}, "
+                 f"want {depth}")
+        rows[depth] = {"wall_s": round(wall, 3), **g,
+                       **{k: res.stage_s[k] for k in (
+                           "decode_wait_s", "compute_wait_s",
+                           "device_pull_s", "entropy_s", "package_s")}}
+        tree = _runtime_tree(out)
+        if ref is None:
+            ref = tree
+        elif _tree_diff(ref, tree):
+            fail(f"runtime {name}: the depth-{depth} tree differs from "
+                 f"depth {depths[0]}'s: {_tree_diff(ref, tree)}")
+        log(f"runtime {name} depth {depth}: " + json.dumps(rows[depth]))
+    return ref, rows
+
+
+def _runtime_failpoint(backend, plan_for, want: dict, work: Path) -> dict:
+    """``backend.pull`` armed once (its second hit: dispatch 2 of the one
+    rung) at depth 2: the run raises, no executor or prefetch thread is
+    left, and the resumed run writes the uninterrupted tree."""
+    import threading
+
+    from vlog_tpu_torch.ops import fused_resize
+    from vlog_tpu_torch.utils import failpoints
+
+    out = work / "rt_failpoint"
+    fused_resize.launches = 0
+    failpoints.arm("backend.pull", count=1, skip=1)
+    try:
+        _at_depth(2, backend.run, plan_for(out), resume=False)
+        fail("runtime failpoint: the run with backend.pull armed finished")
+    except failpoints.FailpointError:
+        pass
+    finally:
+        fires = failpoints.counters()["backend.pull"]["fires"]
+        failpoints.reset()
+    leaked = [t.name for t in threading.enumerate() if t.is_alive()
+              and t.name.startswith(("vlog-pipe", "vlog-decode"))]
+    if fires != 1 or leaked:
+        fail(f"runtime failpoint: {fires} fires, leaked threads {leaked}")
+    failed_launches = fused_resize.launches
+    res = _at_depth(2, backend.run, plan_for(out), resume=True)
+    if res.resumed_segments != 1:
+        fail(f"runtime failpoint: resumed_segments {res.resumed_segments}, "
+             "want 1")
+    got = _runtime_tree(out)
+    if _tree_diff(want, got):
+        fail(f"runtime failpoint: the resumed tree differs: {_tree_diff(want, got)}")
+    return {"fires": fires, "leaked_threads": 0,
+            "launches_failed_run": failed_launches,
+            "launches_resumed_run": fused_resize.launches - failed_launches,
+            "resumed_segments": res.resumed_segments, "files_equal": len(got)}
+
+
+def _runtime_scheduler(src: Path, work: Path) -> dict:
+    """A MeshScheduler over the card with one slot: an HEVC
+    ``process_video`` under a lease and a ``transcribe_video`` through an
+    engine given the scheduler run one after the other on width-1
+    leases; a fault quarantines the card and the CUDA probe reinstates
+    it."""
+    import threading
+
+    from vlog_tpu_torch import config
+    from vlog_tpu_torch.asr.engine import AsrEngine
+    from vlog_tpu_torch.asr.load import load_whisper
+    from vlog_tpu_torch.asr.model import WhisperConfig
+    from vlog_tpu_torch.asr.synthetic import write_checkpoint
+    from vlog_tpu_torch.backends.torch_backend import TorchBackend
+    from vlog_tpu_torch.media.audio import AudioData, write_wav
+    from vlog_tpu_torch.parallel.scheduler import MeshScheduler
+    from vlog_tpu_torch.worker import process_video
+    from vlog_tpu_torch.worker.transcribe import transcribe_video
+
+    card = torch.device("cuda", 0)
+    sched = MeshScheduler(devices=[card], slots=1)
+    grants: list[tuple] = []          # (event, thread, t, width, device)
+    acquire, release = sched._acquire, sched._release
+
+    def logged_acquire(ticket, timeout, cancel):
+        lease = acquire(ticket, timeout, cancel)
+        grants.append(("grant", threading.current_thread().name,
+                       time.perf_counter(), lease.width, str(lease.devices[0])))
+        return lease
+
+    def logged_release(lease):
+        grants.append(("release", threading.current_thread().name,
+                       time.perf_counter(), lease.width, str(lease.devices[0])))
+        release(lease)
+
+    sched._acquire, sched._release = logged_acquire, logged_release
+
+    ckpt = write_checkpoint(work / "whisper-tiny", WhisperConfig(**TINY_WHISPER),
+                            seed=ASR_SEED)
+    wav = work / "sched.wav"
+    n = int(SCHED_WAV_S * 16000)
+    write_wav(wav, AudioData(pcm=_asr_audio(ASR_SEED)[None, :n],
+                             sample_rate=16000))
+    engine = AsrEngine(load_whisper(ckpt, device="cuda"), scheduler=sched)
+    ticket = sched.admit()
+    lease = ticket.acquire()
+    if lease.width != 1 or sched.capacity() != 0:
+        fail(f"runtime scheduler: lease width {lease.width}, capacity "
+             f"{sched.capacity()}")
+    asr_out: dict = {}
+    asr_thread = threading.Thread(
+        target=lambda: asr_out.update(res=transcribe_video(
+            wav, work / "sched_asr", model_dir=str(ckpt), engine=engine,
+            language="en", device="cuda")), name="sched-asr")
+    t0 = time.perf_counter()
+    try:
+        with lease:
+            asr_thread.start()      # its windows queue behind the lease
+            hevc = process_video(src, work / "sched_hevc",
+                                 backend=TorchBackend(device="cpu"),
+                                 codec="h265")
+    finally:
+        ticket.close()
+    asr_thread.join(timeout=300)
+    deadline = time.monotonic() + 10
+    while engine.active() and time.monotonic() < deadline:
+        time.sleep(0.05)
+    engine.close()
+    wall = time.perf_counter() - t0
+    if "res" not in asr_out:
+        fail("runtime scheduler: transcribe_video did not finish")
+    events = [(e, th, w, d) for e, th, _, w, d in grants]
+    want = [("grant", "MainThread", 1, str(card)),
+            ("release", "MainThread", 1, str(card)),
+            ("grant", "vlog-asr-engine", 1, str(card)),
+            ("release", "vlog-asr-engine", 1, str(card))]
+    if events != want:
+        fail(f"runtime scheduler: leases {events}, want {want}")
+    if sched.capacity() != 1:
+        fail(f"runtime scheduler: capacity {sched.capacity()} after both jobs")
+    if hevc.run.frames_processed != FRAMES:
+        fail(f"runtime scheduler: hevc processed {hevc.run.frames_processed}")
+    # quarantine and the CUDA probe
+    saved = config.QUARANTINE_THRESHOLD
+    config.QUARANTINE_THRESHOLD = 1
+    try:
+        t = sched.admit()
+        faulty = t.acquire()
+        newly = sched.report_device_fault(faulty, reason="chip smoke")
+        t.close()
+    finally:
+        config.QUARANTINE_THRESHOLD = saved
+    quarantined = sched.snapshot()
+    if newly != (card,) or quarantined["slots"] != 0 or sched.capacity() != 0:
+        fail(f"runtime scheduler: fault quarantined {newly}, {quarantined}")
+    probe = sched.probe_quarantined()
+    healed = sched.snapshot()
+    if probe != {card: True} or healed["slots"] != 1 or healed["healthy"] != 1:
+        fail(f"runtime scheduler: probe {probe}, {healed}")
+    return {"leases": [list(e) for e in events], "wall_s": round(wall, 3),
+            "hevc_ran_on_lease_device": True,
+            "asr_cues": asr_out["res"].cue_count,
+            "quarantined": {k: quarantined[k] for k in ("slots", "quarantined")},
+            "probe": {str(k): v for k, v in probe.items()},
+            "healed": {k: healed[k] for k in ("slots", "healthy")}}
+
+
+def _runtime_profiler(backend, plan, work: Path) -> dict:
+    """A session started from the main thread around an HEVC run on
+    another thread: the trace names the resize kernel."""
+    import threading
+
+    from vlog_tpu_torch import config
+    from vlog_tpu_torch.obs.profiler import DeviceProfiler
+
+    saved = config.PROFILE_DIR
+    config.PROFILE_DIR = str(work / "profiles")
+    try:
+        prof = DeviceProfiler()
+        info = prof.start(duration_s=PROFILE_SESSION_S, label="chip smoke")
+        if not info.get("profiling"):
+            fail(f"runtime profiler: start failed {info}")
+        job = threading.Thread(target=backend.run, args=(plan,),
+                               kwargs={"resume": False}, name="vlog-job-hevc")
+        job.start()
+        deadline = time.monotonic() + PROFILE_SESSION_S + 60
+        while prof.status()["profiling"] and time.monotonic() < deadline:
+            time.sleep(0.1)
+        job.join(timeout=120)
+        if prof.status()["profiling"] or job.is_alive():
+            fail("runtime profiler: the session or the job did not end")
+    finally:
+        config.PROFILE_DIR = saved
+    trace = Path(info["dir"]) / "trace.json"
+    events = json.loads(trace.read_text())["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    resize = [e for e in kernels if "_resize_kernel" in e.get("name", "")]
+    threads = {e.get("tid") for e in events if e.get("cat") == "cpu_op"}
+    if not resize:
+        fail(f"runtime profiler: no resize kernel among the trace's "
+             f"{len(kernels)} kernels")
+    return {"trace_mb": round(trace.stat().st_size / 2 ** 20, 2),
+            "events": len(events), "kernels": len(kernels),
+            "resize_kernels": len(resize),
+            "resize_names": sorted({e["name"] for e in resize}),
+            "cpu_op_threads": len(threads)}
+
+
+def _compile_warm() -> float:
+    """compile_seconds() of a fresh process that loads both libraries
+    from the warm build directory."""
+    code = ("import sys; sys.path.insert(0, %r)\n"
+            "from vlog_tpu_torch.native import build\n"
+            "from vlog_tpu_torch.ops import fused_resize\n"
+            "from vlog_tpu_torch.parallel.compile_cache import compile_seconds\n"
+            "fused_resize.load_library(); build.get_lib()\n"
+            "print(compile_seconds())" % str(ROOT))
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, check=True, timeout=120)
+    return float(out.stdout.strip().splitlines()[-1])
+
+
+def phase_runtime(sources: dict, work: Path, compile_cold: float) -> int:
+    import dataclasses
+
+    from vlog_tpu_torch import config
+    from vlog_tpu_torch.backends.torch_backend import TorchBackend
+    from vlog_tpu_torch.media.probe import get_video_info
+    from vlog_tpu_torch.ops import fused_resize
+
+    backend = TorchBackend(device="cuda")
+    launches, part_s = 0, {}
+    clock = time.perf_counter
+    # 1. HEVC, 1080p, constant-QP 4-rung ladder, 6-frame chains: 4 dispatches
+    t0 = clock()
+    ladder = tuple(dataclasses.replace(r, video_bitrate=0)
+                   for r in config.ladder_for_source(SRC_H))
+    info = get_video_info(sources[FRAMES])
+    hevc_plan = lambda out: backend.plan(           # noqa: E731
+        info, ladder, out, codec="h265", segment_duration_s=SHORT_SEG_S,
+        frame_batch=SHORT_BATCH, thumbnail=False)
+    per_call = _frames_per_call(hevc_plan(work / "rt_probe"), "runtime hevc",
+                                FRAMES)
+    scaled = sum(1 for r in ladder if r.height != SRC_H)
+    _, hevc_rows = _runtime_depths(backend, hevc_plan, RUNTIME_HEVC_DEPTHS,
+                                   "hevc", scaled * 3 * len(per_call), work)
+    launches += scaled * 3 * len(per_call) * len(RUNTIME_HEVC_DEPTHS)
+    part_s["hevc_depths"] = clock() - t0
+    # 2. H.264, the resume phase's 360p rung at constant QP: 2 dispatches
+    t0 = clock()
+    rung = dataclasses.replace(config.QUALITY_LADDER[-1], video_bitrate=0)
+    info12 = get_video_info(sources[RESUME_FRAMES])
+    h264_plan = lambda out: backend.plan(           # noqa: E731
+        info12, (rung,), out, segment_duration_s=SHORT_SEG_S,
+        frame_batch=SHORT_BATCH, thumbnail=False)
+    n_disp = len(_frames_per_call(h264_plan(work / "rt_probe"), "runtime h264",
+                                  RESUME_FRAMES))
+    tree, h264_rows = _runtime_depths(backend, h264_plan, RUNTIME_H264_DEPTHS,
+                                      "h264", 3 * n_disp, work)
+    launches += 3 * n_disp * len(RUNTIME_H264_DEPTHS)
+    if h264_rows[2]["max_in_flight"] != 2:
+        fail(f"runtime h264: depth 2 reached max_in_flight "
+             f"{h264_rows[2]['max_in_flight']}, want 2")
+    part_s["h264_depths"] = clock() - t0
+    # 3. the backend.pull failpoint: clean drain, equal resumed tree
+    t0 = clock()
+    fp = _runtime_failpoint(backend, h264_plan, tree, work)
+    launches += fp["launches_failed_run"] + fp["launches_resumed_run"]
+    log("runtime failpoint: " + json.dumps(fp))
+    part_s["failpoint"] = clock() - t0
+    # 4. the scheduler on the card (an HEVC job and a transcription)
+    t0 = clock()
+    fused_resize.launches = 0
+    sched = _runtime_scheduler(sources[FRAMES], work)
+    if fused_resize.launches != 12 * fused_resize.LAUNCHES_PER_CALL:
+        fail(f"runtime scheduler: {fused_resize.launches} launches, want 12")
+    launches += fused_resize.launches
+    log("runtime scheduler: " + json.dumps(sched))
+    part_s["scheduler"] = clock() - t0
+    # 5. the profiler around an HEVC run on another thread
+    t0 = clock()
+    fused_resize.launches = 0
+    plan6 = backend.plan(get_video_info(sources[TS_FRAMES]), ladder,
+                         work / "rt_profiled", codec="h265", thumbnail=False)
+    prof = _runtime_profiler(backend, plan6, work)
+    if fused_resize.launches != scaled * 3 * fused_resize.LAUNCHES_PER_CALL:
+        fail(f"runtime profiler: {fused_resize.launches} launches")
+    launches += fused_resize.launches
+    log("runtime profiler: " + json.dumps(prof))
+    part_s["profiler"] = clock() - t0
+    # 6. the compile meter, cold (this process's builds) and warm
+    t0 = clock()
+    warm = _compile_warm()
+    if warm != 0.0:
+        fail(f"runtime: compile_seconds() {warm} in a warm build directory")
+    log("runtime compile_seconds: " + json.dumps(
+        {"cold": round(compile_cold, 3), "warm": warm}))
+    part_s["compile_warm"] = clock() - t0
+    log("runtime depths: " + json.dumps({"hevc": hevc_rows, "h264": h264_rows}))
+    log("runtime part seconds: " + json.dumps(
+        {k: round(v, 2) for k, v in part_s.items()}))
+    return launches
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available; nothing was run")
@@ -1900,6 +2306,9 @@ def main() -> int:
         return value
 
     timed("build", phase_build)
+    from vlog_tpu_torch.parallel.compile_cache import compile_seconds
+
+    compile_cold = compile_seconds()      # this process's builds
     from vlog_tpu_torch.native import get_av_lib
 
     log("libav ingest shim: " + ("built" if get_av_lib() is not None else
@@ -1915,8 +2324,9 @@ def main() -> int:
     shutil.rmtree(work, ignore_errors=True)
     work.mkdir(parents=True)
     sources = timed("write_y4m", _write_sources, work,
-                    (FRAMES, INTRA_FRAMES, RESUME_FRAMES, TS_FRAMES), 11)
-    launches["slice"] = timed("slice", phase_slice, sources[FRAMES])
+                    (FRAMES, SLICE_FRAMES, INTRA_FRAMES, RESUME_FRAMES,
+                     TS_FRAMES), 11)
+    launches["slice"] = timed("slice", phase_slice, sources[SLICE_FRAMES])
     launches["intra"] = timed("intra", phase_intra, sources[INTRA_FRAMES])
     launches["pipeline"], ip_path, seq = timed("pipeline", phase_pipeline,
                                                work)
@@ -1925,6 +2335,8 @@ def main() -> int:
     launches["resume"] = timed("resume", phase_resume, sources[RESUME_FRAMES])
     launches["ts"] = timed("ts", phase_ts, sources[TS_FRAMES])
     launches["hevc"] = timed("hevc", phase_hevc, sources[FRAMES], work)
+    launches["runtime"] = timed("runtime", phase_runtime, sources, work,
+                                compile_cold)
     timed("asr", phase_asr, work)       # fails on any resize launch
     launches["asr"] = 0
     shutil.rmtree(work, ignore_errors=True)

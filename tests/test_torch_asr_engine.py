@@ -322,3 +322,141 @@ def test_resume_restores_windows_and_decodes_strictly_fewer(assets):
     assert decoded_res == decoded_full - 2
     assert lang2 == lang == "en"
     assert format_vtt(cues_res) == format_vtt(cues_full)
+
+
+# --------------------------------------------------------------------------
+# The mesh scheduler's lease path (the engine owns one ticket)
+# --------------------------------------------------------------------------
+
+def _sched(devices=None):
+    import torch
+
+    from vlog_tpu_torch.parallel.scheduler import MeshScheduler
+
+    return MeshScheduler(devices=devices or [torch.device("cpu")], slots=1)
+
+
+def _wait_until(cond, timeout=10.0):
+    deadline = time.monotonic() + timeout
+    while not cond() and time.monotonic() < deadline:
+        time.sleep(0.01)
+    return cond()
+
+
+def test_engine_takes_a_lease_while_busy_and_releases_at_idle(assets):
+    """Windows queued while a transcode job holds the only slot wait for
+    it; the engine then decodes under its own lease, gives the slot back
+    once its queue drains, and its cues equal a scheduler-less engine's."""
+    from vlog_tpu_torch.obs.metrics import HAVE_PROMETHEUS, runtime
+
+    sched = _sched()
+    wins = [(25.0 * i, _tone(4.0, 220.0 + 50 * i)) for i in range(2)]
+    transcode = sched.admit()
+    lease = transcode.acquire(timeout=5)
+    engine = AsrEngine(assets, scheduler=sched, batch_windows=4, tick_s=0.05)
+    ok = runtime().asr_batches.labels(result="ok")
+    before = ok._value.get() if HAVE_PROMETHEUS else 0.0
+    try:
+        h = engine.begin_job("leased", language="en", max_new=8, beam=1)
+        for i, (t0, w) in enumerate(wins):
+            h.submit(i, t0, w)
+        assert engine.active()                 # queued work counts
+        time.sleep(0.3)
+        assert engine.batch_log == []          # blocked on the slot
+        assert sched.snapshot()["pending"] == 1
+        lease.release()
+        transcode.close()
+        got = _collect(h)
+        h.close()
+        assert _wait_until(lambda: not engine.active())
+        assert sched.snapshot()["active"] == 0 and sched.capacity() == 1
+    finally:
+        engine.close()
+        transcode.close()
+    if HAVE_PROMETHEUS:
+        assert ok._value.get() == before + len(engine.batch_log)
+    solo = AsrEngine(assets, batch_windows=4, tick_s=0.05)
+    try:
+        h = solo.begin_job("solo", language="en", max_new=8, beam=1)
+        for i, (t0, w) in enumerate(wins):
+            h.submit(i, t0, w)
+        want = _collect(h)
+        h.close()
+    finally:
+        solo.close()
+    assert got == want
+
+
+def test_engine_close_aborts_a_blocked_acquire(assets):
+    sched = _sched()
+    transcode = sched.admit()
+    transcode.acquire(timeout=5)
+    engine = AsrEngine(assets, scheduler=sched, batch_windows=4, tick_s=0.0)
+    h = engine.begin_job("stuck", language="en", max_new=8, beam=1)
+    h.submit(0, 0.0, _tone(2.0))
+    assert _wait_until(lambda: sched.snapshot()["pending"] == 1)
+    engine.close()                       # its stop event cancels the wait
+    assert not engine._thread.is_alive()
+    assert sched.snapshot()["pending"] == 0   # demand withdrawn once
+    transcode.close()
+    assert sched.capacity() == 1 and not engine._lease_held.is_set()
+
+
+def test_job_cancel_wakes_its_waiter_and_drops_windows(assets):
+    sched = _sched()
+    transcode = sched.admit()
+    transcode.acquire(timeout=5)         # keeps the engine from decoding
+    engine = AsrEngine(assets, scheduler=sched, batch_windows=4, tick_s=0.0)
+    try:
+        h = engine.begin_job("gone", language="en", max_new=8, beam=1)
+        h.submit(0, 0.0, _tone(2.0))
+        h.submit(1, 25.0, _tone(2.0))
+        errors = []
+
+        def waiter():
+            try:
+                list(h.results())
+            except AsrJobError as exc:
+                errors.append(str(exc))
+
+        th = threading.Thread(target=waiter)
+        th.start()
+        time.sleep(0.1)
+        h.cancel()
+        th.join(timeout=5)
+        assert errors == ["job gone cancelled"]
+        assert engine._queue.pending() == 0
+        with pytest.raises(AsrJobError, match="cancelled"):
+            h.submit(2, 50.0, _tone(2.0))
+        h.close()
+    finally:
+        transcode.close()
+        engine.close()
+    assert engine.batch_log == []
+
+
+def test_engine_under_a_wider_lease_fails_the_batch(assets):
+    """A lease of two devices: batches sharded over several devices are
+    not ported, so the batch fails (the jobs see it) and the engine
+    keeps serving; the lease still goes back at idle."""
+    sched = _sched(devices=["cpu:a", "cpu:b"])
+    engine = AsrEngine(assets, scheduler=sched, batch_windows=4, tick_s=0.0)
+    try:
+        h = engine.begin_job("wide", language="en", max_new=8, beam=1)
+        h.submit(0, 0.0, _tone(2.0))
+        with pytest.raises(AsrJobError, match="item 14"):
+            list(h.results())
+        h.close()
+        assert _wait_until(lambda: not engine.active())
+        assert sched.capacity() == 1
+    finally:
+        engine.close()
+    assert engine.batch_log == []
+
+
+def test_get_engine_keys_on_the_scheduler(tiny_model_dir):
+    sched = _sched()
+    e1 = get_engine(str(tiny_model_dir), device="cpu")  # slowlane-ok: tiny
+    e2 = get_engine(str(tiny_model_dir), device="cpu",  # slowlane-ok: tiny
+                    scheduler=sched)
+    assert e2 is not e1 and e2.scheduler is sched and peek_engine() is e2

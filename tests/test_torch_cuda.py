@@ -3,7 +3,9 @@ its plain version (the ladder's shapes and the sprite tiles'), the
 integer stages and the decoder's device functions on CUDA against the
 CPU, the HEVC chain program and deblocking filter on CUDA against the
 CPU, the sprite worker, Whisper, the AAC encoder and ``process_video``
-on the card.
+on the card, and the device runtime: the executor's event/stream copies
+against ``.cpu()``, a pull that does not wait for a later batch's
+kernels, and the scheduler's CUDA probe.
 
 Marked ``cuda``; each test skips (in its fixture) without a CUDA
 device. On a machine with a card and without JAX, run them alone:
@@ -19,6 +21,8 @@ kernel's run stay.
 """
 
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import pytest
@@ -498,3 +502,85 @@ def test_hevc_deblock_picture_cpu_and_cuda_identical(cuda):
         outs[str(dev)] = [a.cpu().numpy() for a in got + (pbv, pbh)]
     for a, b in zip(outs["cpu"], outs["cuda"]):
         np.testing.assert_array_equal(a, b)
+
+
+def test_executor_pull_equals_cpu_copy(cuda):
+    """The executor's copies (an event on the compute stream, pinned
+    buffers filled on its copy stream, a second event per rung) read the
+    same values as ``.cpu()``, at depths 1 and 2, in batch order."""
+    from vlog_tpu_torch.parallel.executor import PipelineExecutor, dispatch_stream
+
+    g = torch.Generator(device=cuda).manual_seed(5)
+    batches = [{r: {"a": torch.randint(-300, 300, (3, 17, 29), generator=g,
+                                       device=cuda, dtype=torch.int16),
+                    "b": torch.rand(4, 5, generator=g, device=cuda)}
+                for r in ("x", "y")} for _ in range(4)]
+    want = [{r: {k: t.cpu().numpy() for k, t in rung.items()}
+             for r, rung in b.items()} for b in batches]
+    for depth in (1, 2):
+        got: dict = {"x": [], "y": []}
+        pipe = PipelineExecutor(
+            ["x", "y"], pull=lambda name, b: b.d2h.host(name),
+            process=lambda name, b, host: got[name].append((b.index, host)),
+            ready=lambda b: b.d2h.wait_compute(), depth=depth, host_threads=1)
+        try:
+            with dispatch_stream(cuda):
+                for b in batches:
+                    pipe.reserve()
+                    # a fresh copy made on the compute stream, freed here
+                    outs = {r: {k: t * 1 for k, t in rung.items()}
+                            for r, rung in b.items()}
+                    pipe.submit(outs, n_real=1)
+                    del outs
+            pipe.drain()
+        finally:
+            pipe.close()
+        for name in ("x", "y"):
+            assert [i for i, _ in got[name]] == [0, 1, 2, 3]
+            for i, host in got[name]:
+                for k in ("a", "b"):
+                    np.testing.assert_array_equal(host[k], want[i][name][k])
+
+
+def test_pull_does_not_wait_for_later_kernels(cuda):
+    """A batch's pull waits on its own events only: with a long kernel
+    queued on the compute stream after batch 0 was submitted, batch 0's
+    ready + pull return while that kernel still runs (``.cpu()`` would
+    wait for it)."""
+    from vlog_tpu_torch.parallel.executor import dispatch_stream, start_d2h
+
+    x = torch.arange(1 << 16, dtype=torch.int32, device=cuda)
+    copy_stream = torch.cuda.Stream(cuda)
+    with dispatch_stream(cuda):
+        d2h = start_d2h({"r": {"v": x * 3}}, copy_stream)
+        torch.cuda._sleep(4_000_000_000)        # about 2 s of one SM's clock
+        after = torch.cuda.Event()
+        after.record()
+    t0 = time.perf_counter()
+    d2h.wait_compute()
+    host = d2h.host("r")
+    waited = time.perf_counter() - t0
+    still_running = not after.query()
+    after.synchronize()
+    np.testing.assert_array_equal(host["v"], np.arange(1 << 16) * 3)
+    assert still_running, f"the pull waited for the later kernel ({waited:.3f}s)"
+    assert waited < 0.5
+
+
+def test_scheduler_cuda_probe(cuda):
+    """The default device list is the visible CUDA devices, and the
+    reinstatement probe (arange(8) on the device, summed, pulled) passes
+    on a healthy card and heals a quarantined one."""
+    from vlog_tpu_torch.parallel import scheduler
+
+    assert scheduler._default_probe(cuda) is True
+    sched = scheduler.MeshScheduler(slots=1)
+    assert sched.devices == tuple(torch.device("cuda", i)
+                                  for i in range(torch.cuda.device_count()))
+    t = sched.admit()
+    lease = t.acquire()
+    sched.report_device_fault(lease)
+    t.close()
+    assert sched.snapshot()["quarantined"] == len(sched.devices)
+    assert all(sched.probe_quarantined().values())
+    assert sched.snapshot()["healthy"] == len(sched.devices)

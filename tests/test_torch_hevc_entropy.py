@@ -184,11 +184,13 @@ def test_oracle_decodes_intra_batch(hevcdec, tmp_path):  # noqa: F811
 def test_native_build_failure_raises(tmp_path, monkeypatch):
     """No fallback: when the C coder cannot be built the entropy call
     raises instead of switching to the Python writers."""
+    from vlog_tpu_torch import config
     from vlog_tpu_torch.codecs.hevc.api import encode_i_payload
     from vlog_tpu_torch.native import build
 
     monkeypatch.setattr(build, "_LIB", None)
-    monkeypatch.setattr(build, "_BUILD", tmp_path / "nobuild")
+    # an empty build directory (parallel/compile_cache.py): a build runs
+    monkeypatch.setattr(config, "COMPILE_CACHE_DIR", str(tmp_path / "nobuild"))
     monkeypatch.setenv("CXX", str(tmp_path / "no-such-compiler"))
     z = np.zeros((1, 1, 32, 32), np.int16)
     c = np.zeros((1, 1, 16, 16), np.int16)

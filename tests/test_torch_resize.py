@@ -234,7 +234,10 @@ def test_cuda_path_raises_when_the_library_cannot_load(monkeypatch, tmp_path):
 
 
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
-    monkeypatch.setattr(fused_resize, "_BUILD_DIR", tmp_path / "build")
+    from vlog_tpu_torch import config
+
+    # the build directory (parallel/compile_cache.py), empty: a build runs
+    monkeypatch.setattr(config, "COMPILE_CACHE_DIR", str(tmp_path / "build"))
     monkeypatch.setenv("PATH", str(tmp_path))
     monkeypatch.setenv("CUDA_HOME", str(tmp_path / "no-cuda"))
     with pytest.raises(RuntimeError, match="nvcc not found"):

@@ -13,9 +13,17 @@ function of its own windows. Every forward runs at a power-of-two bucket
 of rows, zero-padded rows fill the remainder, and the forward has no
 cross-row operation, so row i's tokens do not depend on rows j != i.
 
-This port serves one device and no mesh scheduler: the JAX engine's
-slot-lease branch and its Prometheus batch metrics are not here.
-``stats()`` and ``batch_log`` are.
+Mesh integration: the ENGINE owns the slot demand, not the jobs. Given a
+``scheduler`` (parallel/scheduler.py), it takes one ticket while its
+queue has work, acquires the lease (``acquire(cancel=...)``: closing the
+engine aborts a blocked wait) and gives it back when the queue drains,
+or at a tick boundary when it holds the full mesh and other demand is
+pending. A batch runs on the lease's device, which must be the assets'
+device; a lease wider than one device fails the batch with
+``NotImplementedError`` (a batch sharded over several CUDA devices is
+not ported, ROADMAP Queue A item 14). Each batch feeds the runtime
+metrics (obs/metrics.py): batches, windows, occupancy, pad waste,
+windows per second, queue waits and ``vlog_device_seconds{plane="asr"}``.
 """
 
 from __future__ import annotations
@@ -32,6 +40,7 @@ from vlog_tpu_torch.asr import mel as melmod
 from vlog_tpu_torch.asr.load import WhisperAssets, load_whisper
 from vlog_tpu_torch.asr.queue import BatchKey, WindowQueue, WorkItem
 from vlog_tpu_torch.asr.vtt import Cue
+from vlog_tpu_torch.obs.metrics import runtime
 from vlog_tpu_torch.utils import failpoints
 
 
@@ -97,6 +106,12 @@ class JobHandle:
             self.delivered += 1
             yield payload
 
+    def cancel(self) -> None:
+        """Drop this job's queued windows and wake any blocked waiter."""
+        self._cancelled.set()
+        self._engine._queue.cancel_job(self.job)
+        self._results.put(("error", f"job {self.job} cancelled"))
+
     def close(self) -> None:
         """Unregister from the engine (always call; idempotent)."""
         self._cancelled.set()
@@ -115,13 +130,14 @@ class AsrEngine:
     """Per-process continuous-batching Whisper server on the assets'
     device (see module doc)."""
 
-    def __init__(self, assets: WhisperAssets, *,
+    def __init__(self, assets: WhisperAssets, *, scheduler=None,
                  batch_windows: int | None = None,
                  tick_s: float | None = None,
                  queue_max: int | None = None,
                  window_s: float | None = None):
         self.assets = assets
         self.device = assets.model.device
+        self.scheduler = scheduler
         self.batch_windows = batch_windows or config.ASR_BATCH_WINDOWS
         self.tick_s = config.ASR_TICK_S if tick_s is None else tick_s
         self.window_s = window_s or config.WHISPER_CHUNK_S
@@ -131,6 +147,7 @@ class AsrEngine:
         self._started = False                   # guarded-by: _lock
         self._stop = threading.Event()
         self._thread: threading.Thread | None = None
+        self._lease_held = threading.Event()    # observability only
         # Batch composition log for tests/stats: one entry per tick with
         # rows/occupancy and the job of every packed window.
         self.batch_log: list[dict] = []         # guarded-by: _lock
@@ -166,6 +183,12 @@ class AsrEngine:
             batch, n_mels=self.assets.cfg.num_mel_bins, device=self.device)
         return detect_language(self.assets, feats)
 
+    def active(self) -> bool:
+        """Is the engine serving (queued work or a lease held)? The
+        worker keeps claiming transcription jobs onto a running engine
+        even when slot capacity reads zero."""
+        return self._lease_held.is_set() or self._queue.pending() > 0
+
     def stats(self) -> dict:
         from vlog_tpu_torch.asr.decode import kv_pool
 
@@ -192,19 +215,54 @@ class AsrEngine:
     # tick loop ------------------------------------------------------------
 
     def _run(self) -> None:
-        while not self._stop.is_set():
-            if not self._queue.wait_for_work(timeout=0.2):
-                continue
-            if self.tick_s > 0:
-                # Coalesce: let concurrent jobs land windows before
-                # packing, so the first tick is not a batch of one.
-                time.sleep(self.tick_s)
-            key = self._queue.pick_key()
-            if key is None:
-                continue
-            items = self._queue.take(key, self.batch_windows)
-            if items:
-                self._tick(key, items)
+        ticket = None
+        lease = None
+
+        def _release():
+            nonlocal ticket, lease
+            if ticket is not None:
+                ticket.close()   # releases the lease too
+            ticket = None
+            lease = None
+            self._lease_held.clear()
+
+        try:
+            while not self._stop.is_set():
+                if not self._queue.wait_for_work(timeout=0.2):
+                    if lease is not None or ticket is not None:
+                        _release()   # idle: give the slot back
+                    continue
+                if self.tick_s > 0:
+                    # Coalesce: let concurrent jobs land windows before
+                    # packing, so the first tick is not a batch of one.
+                    time.sleep(self.tick_s)
+                if self.scheduler is not None and lease is None:
+                    from vlog_tpu_torch.parallel.scheduler import SlotCancelled
+
+                    ticket = self.scheduler.admit()
+                    try:
+                        lease = ticket.acquire(cancel=self._stop)
+                    except SlotCancelled:
+                        _release()
+                        continue
+                    self._lease_held.set()
+                key = self._queue.pick_key()
+                if key is None:
+                    continue
+                items = self._queue.take(key, self.batch_windows)
+                if items:
+                    self._tick(key, items, lease)
+                # renegotiate at the tick boundary: a full-mesh lease
+                # goes back as soon as other demand queues, any lease
+                # when the window queue drains
+                if lease is not None:
+                    if self._queue.pending() == 0:
+                        _release()
+                    elif (lease.is_full_mesh
+                          and self.scheduler.snapshot()["pending"] > 0):
+                        _release()
+        finally:
+            _release()
 
     def _bucket_rows(self, n: int) -> int:
         """Smallest power-of-two bucket >= n: every batch runs at one of a
@@ -214,11 +272,22 @@ class AsrEngine:
             rows *= 2
         return rows
 
-    def _tick(self, key: BatchKey, items: list[WorkItem]) -> None:
+    def _tick(self, key: BatchKey, items: list[WorkItem], lease=None) -> None:
         t0 = time.monotonic()
+        rows = 0
         try:
             failpoints.hit("asr.batch")
             n = len(items)
+            if lease is not None:
+                if lease.width > 1:
+                    raise NotImplementedError(
+                        f"a {lease.width}-device lease: batches sharded over "
+                        "several devices are not ported (ROADMAP Queue A "
+                        "item 14)")
+                if torch.device(lease.devices[0]) != self.device:
+                    raise ValueError(
+                        f"lease device {lease.devices[0]} is not the "
+                        f"engine's device {self.device}")
             rows = self._bucket_rows(n)
             stack = [melmod.pad_or_trim(it.samples.astype(np.float32))
                      for it in items]
@@ -251,6 +320,8 @@ class AsrEngine:
             # one bad batch; the affected jobs' attempts fail through the
             # normal job-failure handling and the tick loop keeps serving.
             self._fail_items(items, exc)
+            self._observe_batch_metrics(items, rows=0, elapsed=0.0,
+                                        failed=True)
             return
         with self._lock:
             self.windows_decoded += n
@@ -263,6 +334,8 @@ class AsrEngine:
             h = handles.get(it.job)
             if h is not None and not h._cancelled.is_set():
                 h._deliver(it.index, cues, wait_s)
+        self._observe_batch_metrics(items, rows=rows, elapsed=elapsed,
+                                    failed=False)
 
     def _fail_items(self, items: list[WorkItem], exc: BaseException) -> None:
         with self._lock:
@@ -273,6 +346,28 @@ class AsrEngine:
                 h._fail(exc)
 
 
+    @staticmethod
+    def _observe_batch_metrics(items: list[WorkItem], *, rows: int,
+                               elapsed: float, failed: bool) -> None:
+        m = runtime()
+        m.asr_batches.labels(result="error" if failed else "ok").inc()
+        if failed:
+            m.asr_windows.labels(result="failed").inc(len(items))
+            return
+        n = len(items)
+        m.asr_windows.labels(result="decoded").inc(n)
+        m.asr_batch_occupancy.set(n / rows if rows else 0.0)
+        m.asr_pad_waste.set((rows - n) / rows if rows else 0.0)
+        if elapsed > 0:
+            m.asr_windows_per_second.set(n / elapsed)
+            # the whole batched forward (mel -> generate -> pull) counts
+            # as device time of the ASR plane
+            m.device_seconds.labels("asr", "forward").inc(elapsed)
+        now = time.monotonic()
+        for it in items:
+            m.asr_queue_wait.observe(max(0.0, now - it.enqueued_at))
+
+
 # Per-process engine singleton -------------------------------------------
 
 _ENGINE: AsrEngine | None = None
@@ -280,17 +375,18 @@ _ENGINE_KEY: tuple | None = None
 _ENGINE_LOCK = threading.Lock()
 
 
-def get_engine(model_dir: str, *,
-               device: str | torch.device = "cuda") -> AsrEngine:
+def get_engine(model_dir: str, *, device: str | torch.device = "cuda",
+               scheduler=None) -> AsrEngine:
     """The process's shared engine, (re)built when the checkpoint dir,
-    quant mode or device changes."""
+    quant mode, device or scheduler changes."""
     from vlog_tpu_torch.asr.load import resolve_quant
     from vlog_tpu_torch.device import resolve_device
+    from vlog_tpu_torch.parallel.compile_cache import ensure_compile_cache
 
     global _ENGINE, _ENGINE_KEY
     dev = resolve_device(device)
     quant = resolve_quant()
-    key = (str(model_dir), quant, str(dev))
+    key = (str(model_dir), quant, str(dev), id(scheduler))
     with _ENGINE_LOCK:
         if _ENGINE is not None and _ENGINE_KEY == key:
             return _ENGINE
@@ -299,8 +395,9 @@ def get_engine(model_dir: str, *,
         _ENGINE_KEY = None
     if old is not None:
         old.close()
+    ensure_compile_cache()
     assets = load_whisper(model_dir, quant, device=dev)
-    engine = AsrEngine(assets)
+    engine = AsrEngine(assets, scheduler=scheduler)
     with _ENGINE_LOCK:
         if _ENGINE is None:
             _ENGINE = engine

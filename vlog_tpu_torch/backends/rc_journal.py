@@ -30,6 +30,7 @@ dropped; the contiguous prefix is what resume may use.
 from __future__ import annotations
 
 import json
+import threading
 from pathlib import Path
 
 # Run state, not a published artifact: its bytes are shaped by the
@@ -68,9 +69,12 @@ class RCJournal:
         # a resumed run indexes its batches from 0; the journal keeps the
         # original timeline so a later resume lines up
         self.index_offset = int(keep_batches)
-        self._buf: dict[int, dict] = {}     # batch index -> {rung: obs}
-        self._next = int(keep_batches)
-        self._fp = None
+        # the rungs' consumer threads record concurrently
+        self._lock = threading.Lock()           # lock-order: 60
+        # batch index -> {rung: obs}
+        self._buf: dict[int, dict] = {}     # guarded-by: _lock
+        self._next = int(keep_batches)      # guarded-by: _lock
+        self._fp = None                     # guarded-by: _lock
         self._rewrite(keep_batches)
 
     def _rewrite(self, keep_batches: int) -> None:
@@ -100,21 +104,24 @@ class RCJournal:
                "cost": None if cost is None else float(cost)}
         want = set(self.header["rungs"])
         batch_index += self.index_offset
-        if batch_index < self._next:
-            return          # replayed prefix: already on disk
-        self._buf.setdefault(batch_index, {})[rung] = obs
-        while set(self._buf.get(self._next, ())) >= want:
-            line = _dump({"k": self._next, "obs": self._buf.pop(self._next)})
-            if self._fp is None:
-                self._fp = open(self.path, "a")
-            self._fp.write(line + "\n")
-            self._fp.flush()
-            self._next += 1
+        with self._lock:
+            if batch_index < self._next:
+                return          # replayed prefix: already on disk
+            self._buf.setdefault(batch_index, {})[rung] = obs
+            while set(self._buf.get(self._next, ())) >= want:
+                line = _dump({"k": self._next,
+                              "obs": self._buf.pop(self._next)})
+                if self._fp is None:
+                    self._fp = open(self.path, "a")
+                self._fp.write(line + "\n")
+                self._fp.flush()
+                self._next += 1
 
     def close(self) -> None:
-        if self._fp is not None:
-            self._fp.close()
-            self._fp = None
+        with self._lock:
+            if self._fp is not None:
+                self._fp.close()
+                self._fp = None
 
 
 def _clean_entry(obj) -> tuple[int, dict] | None:

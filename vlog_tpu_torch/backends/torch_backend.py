@@ -17,11 +17,23 @@ plus ``master.m3u8``, ``manifest.mpd``, ``rc_journal.jsonl`` and
 ``segment_%05d.ts`` (ADTS audio muxed in when the plan carries it) and
 no init segment, DASH manifest or journal.
 
-The batches run serially, but the rate-control schedule is the JAX
-backend's: observations of batch k apply before dispatch of batch
-k + PIPELINE_DEPTH, and every observation applies right after a batch
-while a controller is hunting, so both backends plan the same QPs and
-write the same journal. A CMAF run resumes from the segments on disk
+The stages overlap through ``parallel/executor.py``: a prefetch thread
+reads or decodes the next batches, the dispatch thread queues each
+batch's ladder program on the run's compute stream and starts its
+device-to-host copies on a copy stream, one consumer thread per rung
+entropy-codes (frames fanned out on the host pool) and packages its
+rung in batch order, and ``VLOG_PIPELINE_DEPTH`` batches (default 2)
+are in flight. The rate-control schedule is the JAX backend's:
+observations of batch k apply before dispatch of batch k + depth, and
+every observation applies right after a batch while a controller is
+hunting, so both backends plan the same QPs and write the same journal.
+Under the mesh scheduler a run executes on its lease's device (one
+device wide; a wider lease raises ``NotImplementedError``).
+``RunResult.stage_s`` has the reference's keys: the busy seconds of
+``decode_wait_s``, ``compute_wait_s``, ``device_pull_s``, ``entropy_s``
+and ``package_s``, ``pad_frames``, ``rung_<name>_s`` per rung, and the
+executor's gauges.
+A CMAF run resumes from the segments on disk
 (``run(..., resume=True)``, the default): the resume point is clamped to
 a batch boundary the journal can replay, so the resumed tree equals the
 uninterrupted one, whichever of the two backends wrote its first part;
@@ -71,10 +83,17 @@ from vlog_tpu_torch.media.ts import TsMuxer, TsSample
 from vlog_tpu_torch.media.y4m import fps_to_fraction
 from vlog_tpu_torch.ops.colorspace import yuv420_to_rgb
 from vlog_tpu_torch.ops.fused_resize import resize_yuv420
-from vlog_tpu_torch.parallel.executor import LaggedRateControl
+from vlog_tpu_torch.obs.trace import STAGE_KEYS
+from vlog_tpu_torch.parallel.compile_cache import ensure_compile_cache
+from vlog_tpu_torch.parallel.executor import (DecodePrefetch,
+                                              LaggedRateControl,
+                                              PipelineExecutor,
+                                              dispatch_stream, upload)
 from vlog_tpu_torch.parallel.ladder import (ladder_chain_program,
                                             ladder_encode_program,
                                             ladder_matrices, mats_from_numpy)
+from vlog_tpu_torch.parallel.scheduler import (device_for_run,
+                                               host_pool_for_run)
 from vlog_tpu_torch.utils import failpoints
 from vlog_tpu_torch.utils.fsio import (atomic_write_bytes, atomic_write_text,
                                        prepare_init_segment)
@@ -93,7 +112,8 @@ class TorchBackend:
 
     def __init__(self, device="cuda"):
         self.device = resolve_device(device)
-        self._thumb_mats = {}       # (h, w, th, tw) -> the thumbnail's matrices
+        # (h, w, th, tw, device) -> the thumbnail's matrices
+        self._thumb_mats = {}
 
     def detect(self) -> Capabilities:
         """What this backend's device offers; raises on a CUDA device when
@@ -162,9 +182,7 @@ class TorchBackend:
         t0 = time.monotonic()
         if any(r.codec == "h265" for r in plan.rungs):
             return run_hevc(self, plan, progress_cb, resume, t0)
-        dev = self.device
         out = plan.out_dir
-        out.mkdir(parents=True, exist_ok=True)
         fps = plan.fps_num / plan.fps_den
         frames_per_seg = max(1, round(plan.segment_duration_s * fps))
         timescale = plan.fps_num * 1000
@@ -176,6 +194,16 @@ class TorchBackend:
         # chains run the in-loop deblocking filter; intra frames do not
         deblock = config.H264_DEBLOCK and chain_mode
         tag = f"h264:{config.H264_ENTROPY}:deblock={int(deblock)}"
+        rungs_spec = tuple((r.name, r.height, r.width, r.qp)
+                           for r in plan.rungs)
+        # whole chains per dispatch, enough for frame_batch frames
+        chains_per = max(1, -(-plan.frame_batch // clen))
+        batch_n = clen * chains_per if chain_mode else max(plan.frame_batch, 1)
+        # the lease's device under the scheduler, else the backend's
+        dev = device_for_run(self.device, rungs_spec,
+                             chains_per if chain_mode else batch_n)
+        ensure_compile_cache()
+        out.mkdir(parents=True, exist_ok=True)
 
         encoders, tracks = {}, {}
         seg_durs: dict[str, list[float]] = {}
@@ -219,20 +247,14 @@ class TorchBackend:
                 start_segment = min(len(d) for d in per_rung.values())
 
             src_h, src_w = plan.source.height, plan.source.width
-            rungs_spec = tuple((r.name, r.height, r.width, r.qp)
-                               for r in plan.rungs)
             if chain_mode:
                 fn, mats = ladder_chain_program(
                     rungs_spec, src_h, src_w,
                     search=config.MOTION_SEARCH_RADIUS, deblock=deblock,
                     device=dev)
-                # whole chains per dispatch, enough for frame_batch frames
-                chains_per = max(1, -(-plan.frame_batch // clen))
-                batch_n = clen * chains_per
             else:
                 fn, mats = ladder_encode_program(rungs_spec, src_h, src_w,
                                                  device=dev)
-                batch_n = max(plan.frame_batch, 1)
             controllers = {r.name: RateController(target_bps=r.video_bitrate,
                                                   fps=fps, init_qp=r.qp)
                            for r in plan.rungs}
@@ -282,8 +304,10 @@ class TorchBackend:
                 thumb_path = str(out / THUMBNAIL_NAME)
 
             npix = {r.name: r.height * r.width for r in plan.rungs}
-            prof = {"decode_s": 0.0, "device_s": 0.0, "pull_s": 0.0,
-                    "entropy_s": 0.0, "package_s": 0.0, "thumbnail_s": 0.0}
+            rungs_by_name = {r.name: r for r in plan.rungs}
+            # cumulative busy seconds per stage (obs/trace.py STAGE_KEYS);
+            # the executor adds its overlap gauges
+            prof = dict.fromkeys(STAGE_KEYS, 0.0)
 
             # MPEG-TS: one muxer per rung for the whole playlist, exact
             # 90 kHz timestamps (multiply before dividing, per index)
@@ -353,18 +377,17 @@ class TorchBackend:
                     chunk = pending[name][:frames_per_seg]
                     pending[name] = pending[name][frames_per_seg:]
                     write_segment(rung, chunk)
-                prof["package_s"] += time.perf_counter() - tw
+                pipe.prof_add("package_s", time.perf_counter() - tw)
 
             def psnr_of(sse, name):
                 mse = np.maximum(sse / npix[name], 1e-12)
                 return np.where(mse < 1e-9, 99.0, 10 * np.log10(255 ** 2 / mse))
 
-            def consume_chain(rung, batch_index: int, host: dict, plan_q,
-                              n_real: int) -> None:
+            def process_chain(name: str, batch, host: dict) -> None:
                 """Entropy-code one rung of a dispatch of chains (display
                 order is chain-major)."""
-                name = rung.name
                 i32 = lambda a: np.ascontiguousarray(a, np.int32)  # noqa: E731
+                n_real, plan_q = batch.n_real, batch.qps[name]
                 te = time.perf_counter()
                 sse, qarr, cost = host["sse_y"], host["qp_eff"], host["cost"]
                 frames, n_frames, cost_sum, rc_qs = [], 0, 0.0, []
@@ -389,104 +412,123 @@ class TorchBackend:
                               for fi in range(keep - 1)]
                     frames += encoders[name].encode_chain(
                         lv0, p_list, qarr[ci, :keep],
-                        psnr_of(sse[ci, :keep], name))
+                        psnr_of(sse[ci, :keep], name), pool=pipe.host_pool)
                     n_frames += keep
                 rc_mix = np.concatenate(rc_qs) if rc_qs else None
                 if rc_mix is not None and rc_mix.size == 0:
                     rc_mix = None
-                prof["entropy_s"] += time.perf_counter() - te
-                finish(rung, batch_index, frames,
+                pipe.prof_add("entropy_s", time.perf_counter() - te)
+                finish(rungs_by_name[name], batch.index, frames,
                        sum(len(ef.avcc) for ef in frames), max(n_frames, 1),
                        rc_mix, cost_sum)
 
-            def consume_intra(rung, batch_index: int, host: dict, plan_q,
-                              n_real: int) -> None:
+            def process_intra(name: str, batch, host: dict) -> None:
                 """Entropy-code one rung of a dispatch of intra frames."""
-                name = rung.name
+                n_real = batch.n_real
                 te = time.perf_counter()
                 levels = {k: np.ascontiguousarray(host[k][:n_real], np.int32)
                           for k in _INTRA_KEYS[:4]}
-                q_used = plan_q[:n_real]
+                q_used = batch.qps[name][:n_real]
                 frames = encoders[name].encode_levels(
-                    levels, q_used, psnr_of(host["sse_y"][:n_real], name))
-                prof["entropy_s"] += time.perf_counter() - te
-                finish(rung, batch_index, frames,
+                    levels, q_used, psnr_of(host["sse_y"][:n_real], name),
+                    pool=pipe.host_pool)
+                pipe.prof_add("entropy_s", time.perf_counter() - te)
+                finish(rungs_by_name[name], batch.index, frames,
                        sum(len(ef.avcc) for ef in frames), n_real, q_used,
                        None)
 
-            keys, consume = ((_CHAIN_KEYS, consume_chain) if chain_mode
-                             else (_INTRA_KEYS, consume_intra))
             frames_done = start_frame
-            batch_idx = 0
-            batches = src.read_batches(batch_n, start_frame)
-            while True:
-                td = time.perf_counter()
-                item = next(batches, None)
-                prof["decode_s"] += time.perf_counter() - td
-                if item is None:
-                    break
-                n_real = item[0].shape[0]
-                if plan.thumbnail and thumb_path is None:
-                    # the first batch's first frame
-                    thumb_path = str(out / THUMBNAIL_NAME)
-                    tt = time.perf_counter()
-                    self._write_thumbnail(*(p[0] for p in item), thumb_path)
-                    prof["thumbnail_s"] += time.perf_counter() - tt
-                td = time.perf_counter()
-                if chain_mode:
-                    # only the chains holding real frames; a lone chain
-                    # only up to its last real frame (at least 2)
-                    n_chains = -(-n_real // clen)
-                    lead = (n_chains, clen if n_chains > 1
-                            else max(2, n_real))
-                else:
-                    lead = (batch_n,)
-                n_disp = int(np.prod(lead))
-                # tail: replicate the last frame, dropped after encode
-                planes = [torch.from_numpy(np.concatenate(
-                              [p, np.repeat(p[-1:], n_disp - n_real, 0)])
-                              if n_disp > n_real else p)
-                          .reshape(lead + p.shape[1:]).to(dev)
-                          for p in item]
-                prof["decode_s"] += time.perf_counter() - td
 
-                rc.apply_upto(batch_idx - depth)
-                qps = {}
-                for r in plan.rungs:
-                    q = controllers[r.name].frame_qps(batch_n)
-                    if chain_mode:
-                        # the I frames take the -2 QP anchor
-                        q = q.reshape(chains_per, clen)
-                        q[:, 0] = np.maximum(q[:, 0] - 2, 0)
-                        q = np.ascontiguousarray(q[:lead[0], :lead[1]])
-                    qps[r.name] = q
-                tc = time.perf_counter()
-                if chain_mode:
-                    outs = fn(*planes, mats, qps,
-                              {r.name: controllers[r.name].device_rc_params()
-                               for r in plan.rungs})
-                else:
-                    outs = fn(*planes, mats, qps)
-                if dev.type == "cuda":
-                    torch.cuda.synchronize(dev)
-                prof["device_s"] += time.perf_counter() - tc
-                for r in plan.rungs:
-                    tp = time.perf_counter()
-                    host = {k: outs[r.name][k].cpu().numpy() for k in keys}
-                    prof["pull_s"] += time.perf_counter() - tp
-                    consume(r, batch_idx, host, qps[r.name], n_real)
-                del outs
-                batch_idx += 1
-                frames_done += n_real
+            def on_batch_done(batch) -> None:
+                # serialized and in batch order (the executor's contract)
+                nonlocal frames_done
+                frames_done += batch.n_real
                 if progress_cb:
                     progress_cb(frames_done, total,
                                 f"encoded {frames_done}/{total} frames")
-                if rc.hunting():
-                    rc.apply_upto(batch_idx - 1)
-            for rung in plan.rungs:                  # trailing partials
-                if pending[rung.name]:
-                    write_segment(rung, pending[rung.name])
-                    pending[rung.name] = []
+
+            keys = _CHAIN_KEYS if chain_mode else _INTRA_KEYS
+            pipe = PipelineExecutor(
+                [r.name for r in plan.rungs],
+                pull=lambda name, batch: batch.d2h.host(name),
+                process=process_chain if chain_mode else process_intra,
+                ready=lambda batch: batch.d2h.wait_compute(),
+                on_batch_done=on_batch_done,
+                host_pool=host_pool_for_run(),   # shared across slot jobs
+                prof=prof, name="vlog-pipe")
+            prefetch = None
+            try:
+                prefetch = DecodePrefetch(src, batch_n, start_frame, maxsize=2)
+                batch_idx = 0
+                with dispatch_stream(dev):
+                    while True:
+                        td = time.perf_counter()
+                        item = prefetch.get()
+                        prof["decode_wait_s"] += time.perf_counter() - td
+                        if item is None:
+                            break
+                        n_real = item[0].shape[0]
+                        if plan.thumbnail and thumb_path is None:
+                            # the first batch's first frame, on the host pool
+                            thumb_path = str(out / THUMBNAIL_NAME)
+                            pipe.submit_aux(self._write_thumbnail,
+                                            *(p[0] for p in item), thumb_path,
+                                            1280, dev)
+                        if chain_mode:
+                            # only the chains holding real frames; a lone
+                            # chain only up to its last real frame (>= 2)
+                            n_chains = -(-n_real // clen)
+                            lead = (n_chains, clen if n_chains > 1
+                                    else max(2, n_real))
+                        else:
+                            lead = (batch_n,)
+                        n_disp = int(np.prod(lead))
+                        # backpressure before planning: batches <= N-depth
+                        # are consumed, so every depth plans the same QPs
+                        pipe.reserve()
+                        rc.apply_upto(batch_idx - pipe.depth)
+                        pipe.note_pad_waste(n_real, n_disp)
+                        # tail: replicate the last frame, dropped after
+                        # encode
+                        planes = [upload((np.concatenate(
+                            [p, np.repeat(p[-1:], n_disp - n_real, 0)])
+                            if n_disp > n_real else p)
+                            .reshape(lead + p.shape[1:]), dev)
+                            for p in item]
+                        qps = {}
+                        for r in plan.rungs:
+                            q = controllers[r.name].frame_qps(batch_n)
+                            if chain_mode:
+                                # the I frames take the -2 QP anchor
+                                q = q.reshape(chains_per, clen)
+                                q[:, 0] = np.maximum(q[:, 0] - 2, 0)
+                                q = np.ascontiguousarray(q[:lead[0], :lead[1]])
+                            qps[r.name] = q
+                        if chain_mode:
+                            outs = fn(*planes, mats, qps, {
+                                r.name: controllers[r.name].device_rc_params()
+                                for r in plan.rungs})
+                        else:
+                            outs = fn(*planes, mats, qps)
+                        pipe.submit({r.name: {k: outs[r.name][k]
+                                              for k in keys}
+                                     for r in plan.rungs}, n_real, qps)
+                        del outs, planes
+                        batch_idx += 1
+                        if rc.hunting():
+                            # calibration or cliff hunt: drain to depth 0 so
+                            # every correction lands before the next batch
+                            pipe.drain()
+                            rc.apply_upto(batch_idx - 1)
+                    pipe.drain()
+                for rung in plan.rungs:                  # trailing partials
+                    if pending[rung.name]:
+                        write_segment(rung, pending[rung.name])
+                        pending[rung.name] = []
+            finally:
+                if prefetch is not None:
+                    prefetch.close()
+                pipe.close()
         finally:
             src.close()
             if journal is not None:
@@ -504,7 +546,8 @@ class TorchBackend:
             duration_s=duration_s, thumbnail_path=thumb_path,
             wall_s=time.monotonic() - t0, variants=variants, fps=fps,
             segment_duration_s=plan.segment_duration_s,
-            stage_s={k: round(v, 3) for k, v in prof.items()},
+            stage_s={k: round(v, 3) for k, v in prof.items()}
+            | pipe.gauges(),
             gop_len=clen, resumed_segments=start_segment * len(plan.rungs))
 
     @staticmethod
@@ -616,19 +659,22 @@ class TorchBackend:
             i += 1
         return durations
 
-    def _thumbnail_planes(self, y, u, v, max_width: int = 1280):
-        """One frame's planes on the device, resized (the fused kernel on
-        CUDA) to at most ``max_width`` wide; each geometry's matrices are
-        built once per backend, so the kernel's band form is too."""
-        y, u, v = (torch.tensor(p, device=self.device) for p in (y, u, v))
+    def _thumbnail_planes(self, y, u, v, max_width: int = 1280,
+                          device: torch.device | None = None):
+        """One frame's planes on ``device`` (default the backend's),
+        resized (the fused kernel on CUDA) to at most ``max_width`` wide;
+        each geometry's matrices are built once per backend and device,
+        so the kernel's band form is too."""
+        device = self.device if device is None else device
+        y, u, v = (torch.tensor(p, device=device) for p in (y, u, v))
         h, w = y.shape
         if w <= max_width:
             return y, u, v
         th = max(2, round(h * max_width / w / 2) * 2)
-        key = (h, w, th, max_width)
+        key = (h, w, th, max_width, str(device))
         if key not in self._thumb_mats:
             self._thumb_mats[key] = mats_from_numpy(ladder_matrices(
-                (("thumb", th, max_width, 0),), h, w), self.device)["thumb"]
+                (("thumb", th, max_width, 0),), h, w), device)["thumb"]
         return tuple(p[0] for p in resize_yuv420(
             y[None], u[None], v[None], self._thumb_mats[key]))
 
@@ -639,11 +685,12 @@ class TorchBackend:
         rgb = yuv420_to_rgb(y, u, v, standard="bt709")
         return quantize_rgb((rgb * 255).to(torch.uint8), quality=85)
 
-    def _write_thumbnail(self, y, u, v, path: str,
-                         max_width: int = 1280) -> None:
-        """JPEG of one frame, at most ``max_width`` wide."""
-        blocks = self._thumbnail_blocks(*self._thumbnail_planes(y, u, v,
-                                                                max_width))
+    def _write_thumbnail(self, y, u, v, path: str, max_width: int = 1280,
+                         device: torch.device | None = None) -> None:
+        """JPEG of one frame, at most ``max_width`` wide, resized on
+        ``device`` (default the backend's)."""
+        blocks = self._thumbnail_blocks(*self._thumbnail_planes(
+            y, u, v, max_width, device))
         atomic_write_bytes(Path(path), pack_jpeg(blocks))
 
 

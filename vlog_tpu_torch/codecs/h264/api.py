@@ -10,6 +10,7 @@ or CAVLC (Baseline), both through the native coders.
 
 from __future__ import annotations
 
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from functools import partial
 
@@ -100,18 +101,21 @@ class H264Encoder:
                             is_idr=True, psnr_y=psnr)
 
     def encode_chain(self, intra: FrameLevels, p_frames: list[dict],
-                     qps: np.ndarray, psnrs: np.ndarray | None = None
+                     qps: np.ndarray, psnrs: np.ndarray | None = None,
+                     pool: ThreadPoolExecutor | None = None
                      ) -> list[EncodedFrame]:
         """Entropy-code one I+P mini-GOP: ``intra`` is frame 0's levels,
         ``p_frames`` the inter level dicts (luma/chroma_dc/chroma_ac/mv)
-        of frames 1..clen-1, ``qps`` the QP each frame was coded at."""
+        of frames 1..clen-1, ``qps`` the QP each frame was coded at. The
+        frames' slices are independent: with ``pool`` they code on its
+        threads (the C coders release the GIL), same bytes."""
         slice_fn, p_slice_fn = self._slice_fns()
         idr_pic_id = self._idr_pic_id
         self._idr_pic_id = (self._idr_pic_id + 1) % 65536
         psnr = (lambda i: float(psnrs[i]) if psnrs is not None
                 else float("nan"))
-        frames = []
-        for i in range(1 + len(p_frames)):
+
+        def pack(i: int) -> EncodedFrame:
             if i == 0:
                 nal = slice_fn(intra, qp=int(qps[0]), init_qp=self.qp,
                                frame_num=0, idr=True, idr_pic_id=idr_pic_id)
@@ -121,25 +125,32 @@ class H264Encoder:
                                  init_qp=self.qp, frame_num=i)
                 annexb = syntax.annexb([nal])
             raw = nal.to_bytes()
-            frames.append(EncodedFrame(
+            return EncodedFrame(
                 avcc=len(raw).to_bytes(4, "big") + raw, annexb=annexb,
-                is_idr=i == 0, psnr_y=psnr(i)))
-        return frames
+                is_idr=i == 0, psnr_y=psnr(i))
+
+        n = 1 + len(p_frames)
+        return list(pool.map(pack, range(n)) if pool is not None
+                    else map(pack, range(n)))
 
     def encode_levels(self, levels: dict, qps: np.ndarray,
-                      psnrs: np.ndarray | None = None) -> list[EncodedFrame]:
+                      psnrs: np.ndarray | None = None,
+                      pool: ThreadPoolExecutor | None = None
+                      ) -> list[EncodedFrame]:
         """Entropy-code a batch of intra frames already on the host:
         ``levels`` holds numpy ``luma_dc/luma_ac/chroma_dc/chroma_ac``
         with a leading frame axis, ``qps`` the per-frame QP the device
-        used."""
+        used; with ``pool`` the frames code on its threads."""
         n = levels["luma_dc"].shape[0]
         first = self._frame_index
         self._frame_index += n
-        out = []
-        for i in range(n):
+
+        def pack(i: int) -> EncodedFrame:
             lv = FrameLevels(levels["luma_dc"][i], levels["luma_ac"][i],
                              levels["chroma_dc"][i], levels["chroma_ac"][i],
                              int(qps[i]))
             psnr = float(psnrs[i]) if psnrs is not None else float("nan")
-            out.append(self._pack_one(first + i, lv, int(qps[i]), psnr))
-        return out
+            return self._pack_one(first + i, lv, int(qps[i]), psnr)
+
+        return list(pool.map(pack, range(n)) if pool is not None
+                    else map(pack, range(n)))

@@ -2,16 +2,17 @@
 
 Same ``VLOG_*`` names and defaults as the JAX package's config (ladder,
 GOP structure, entropy, deblocking, search radius, batch and pipeline
-depth, sprite sheets, transcription), so one environment configures
-both. Only what the port's H.264 paths (I+P or intra-only, CMAF or
-MPEG-TS), its HEVC path, its pipeline, its sprite worker and its
-transcription worker read is here.
+depth, sprite sheets, transcription, the device runtime), so one
+environment configures both. Only what the port's H.264 paths (I+P or
+intra-only, CMAF or MPEG-TS), its HEVC path, its pipeline, its sprite
+worker, its transcription worker and its device runtime read is here.
 """
 
 from __future__ import annotations
 
 import os
 from dataclasses import dataclass
+from pathlib import Path
 
 
 class ConfigError(ValueError):
@@ -116,6 +117,27 @@ ENTROPY_THREADS: int = _env_int(
     lo=1, hi=256)
 TPU_FRAME_BATCH: int = _env_int("VLOG_TPU_FRAME_BATCH", 8, lo=1, hi=256)
 PIPELINE_DEPTH: int = _env_int("VLOG_PIPELINE_DEPTH", 2, lo=1, hi=16)
+
+# The device runtime (parallel/scheduler.py, parallel/mesh.py,
+# parallel/compile_cache.py, obs/profiler.py), the JAX package's names
+# and defaults. Mesh job slots: the process's devices partition into
+# this many contiguous slots; a lone job still leases every device.
+MESH_SLOTS: int = _env_int("VLOG_MESH_SLOTS", 1, lo=1, hi=64)
+# (data x rung) grid spec ("data:-1", "data:2,rung:4" or "auto"),
+# resolved by parallel.mesh.resolve_mesh_shape.
+TPU_MESH_SPEC: str = _env_str("VLOG_TPU_MESH", "data:-1")
+# Device-classified faults that quarantine a device, and the cadence of
+# the worker's reinstatement probe sweep (0 disables it).
+QUARANTINE_THRESHOLD: int = _env_int("VLOG_QUARANTINE_THRESHOLD", 1, lo=1)
+DEVICE_PROBE_INTERVAL_S: float = _env_float(
+    "VLOG_DEVICE_PROBE_INTERVAL_S", 60.0, lo=0.0)
+# Where the nvcc and cc libraries build; empty = the package's _build/.
+COMPILE_CACHE_DIR: str = _env_str("VLOG_COMPILE_CACHE_DIR", "")
+# Profiler sessions: artifact root (empty = BASE_DIR/profiles) and the
+# cap on one session's duration.
+BASE_DIR: Path = Path(os.environ.get("VLOG_BASE_DIR", "./data")).expanduser()
+PROFILE_DIR: str = _env_str("VLOG_PROFILE_DIR", "")
+PROFILE_MAX_S: float = _env_float("VLOG_PROFILE_MAX_S", 60.0, lo=1.0)
 
 # Disk admission floor (storage/integrity.py::under_pressure); 0 disables.
 MIN_FREE_DISK_BYTES: int = _env_int("VLOG_MIN_FREE_DISK_GB", 10, lo=0) * 1024**3

@@ -9,9 +9,10 @@ table headers are committed as generated by
 ``vlog_tpu/native/gen_tables.py``, ``gen_h264_cabac_tables.py`` and
 ``gen_hevc_tables.py`` (each file's first line names its generator).
 
-The library is compiled with the system C++ compiler into the package's
-ignored ``_build/`` directory at first use. A failed build raises: there
-is no Python fallback coder in the port.
+The library is compiled with the system C++ compiler into the build
+directory (``parallel/compile_cache.py``: the package's ignored
+``_build/`` unless ``VLOG_COMPILE_CACHE_DIR`` is set) at first use. A
+failed build raises: there is no Python fallback coder in the port.
 
 The libav ingest shim (``avshim.c``, a copy of the JAX package's) is a
 second, optional library: it links the system libavformat, libavcodec,
@@ -25,10 +26,13 @@ import ctypes
 import os
 import subprocess
 import threading
+import time
 from pathlib import Path
 
+from vlog_tpu_torch.parallel.compile_cache import (ensure_compile_cache,
+                                                   note_build)
+
 _DIR = Path(__file__).resolve().parent
-_BUILD = _DIR.parent / "_build"
 _SOURCES = ("h264_cabac_enc.c", "cavlc.c", "hevc_cabac.c", "jpeg_pack.c")
 _DEPS = _SOURCES + ("cabac_engine.h", "cavlc_tables.inc",
                     "h264_cabac_tables.inc", "hevc_tables.inc")
@@ -40,23 +44,31 @@ class NativeBuildError(RuntimeError):
     pass
 
 
-def _compile() -> Path:
-    _BUILD.mkdir(parents=True, exist_ok=True)
-    so = _BUILD / "libvt_native.so"
-    if so.exists() and all(so.stat().st_mtime >= (_DIR / p).stat().st_mtime
-                           for p in _DEPS):
-        return so
-    tmp = _BUILD / f"libvt_native.{os.getpid()}.so.tmp"
-    cc = os.environ.get("CXX", "g++")
-    cmd = [cc, "-O3", "-fPIC", "-shared", "-x", "c++",
-           '-DVT_HEVC_TABLES_INC="hevc_tables.inc"',
-           *(str(_DIR / s) for s in _SOURCES), "-I", str(_DIR), "-o", str(tmp)]
+def _run_compiler(cmd: list[str], what: str, limit: int) -> None:
+    """Run one compiler command, metered (parallel/compile_cache.py)."""
+    t0 = time.perf_counter()
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
     except OSError as exc:
-        raise NativeBuildError(f"cannot run {cc!r}: {exc}") from exc
+        raise NativeBuildError(f"cannot run {cmd[0]!r}: {exc}") from exc
+    finally:
+        note_build(time.perf_counter() - t0)
     if proc.returncode != 0:
-        raise NativeBuildError(f"native build failed: {proc.stderr[:2000]}")
+        raise NativeBuildError(f"{what} failed: {proc.stderr[:limit]}")
+
+
+def _compile() -> Path:
+    build = Path(ensure_compile_cache())
+    so = build / "libvt_native.so"
+    if so.exists() and all(so.stat().st_mtime >= (_DIR / p).stat().st_mtime
+                           for p in _DEPS):
+        return so
+    tmp = build / f"libvt_native.{os.getpid()}.so.tmp"
+    cc = os.environ.get("CXX", "g++")
+    _run_compiler([cc, "-O3", "-fPIC", "-shared", "-x", "c++",
+                   '-DVT_HEVC_TABLES_INC="hevc_tables.inc"',
+                   *(str(_DIR / s) for s in _SOURCES), "-I", str(_DIR),
+                   "-o", str(tmp)], "native build", 2000)
     os.replace(tmp, so)
     return so
 
@@ -140,21 +152,16 @@ _AV_TRIED = False
 
 
 def _compile_av() -> Path:
-    _BUILD.mkdir(parents=True, exist_ok=True)
+    build = Path(ensure_compile_cache())
     src = _DIR / "avshim.c"
-    so = _BUILD / "libvt_av.so"
+    so = build / "libvt_av.so"
     if so.exists() and so.stat().st_mtime >= src.stat().st_mtime:
         return so
-    tmp = _BUILD / f"libvt_av.{os.getpid()}.so.tmp"
+    tmp = build / f"libvt_av.{os.getpid()}.so.tmp"
     cc = os.environ.get("CC", "gcc")
-    cmd = [cc, "-O2", "-fPIC", "-shared", str(src), "-o", str(tmp),
-           "-lavformat", "-lavcodec", "-lavutil", "-lswscale"]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-    except OSError as exc:
-        raise NativeBuildError(f"cannot run {cc!r}: {exc}") from exc
-    if proc.returncode != 0:
-        raise NativeBuildError(f"avshim build failed: {proc.stderr[:1000]}")
+    _run_compiler([cc, "-O2", "-fPIC", "-shared", str(src), "-o", str(tmp),
+                   "-lavformat", "-lavcodec", "-lavutil", "-lswscale"],
+                  "avshim build", 1000)
     os.replace(tmp, so)
     return so
 

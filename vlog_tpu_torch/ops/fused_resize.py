@@ -2,8 +2,9 @@
 
 Replaces ``vlog_tpu/ops/pallas_ladder.py::fused_resize_plane``. The CUDA
 source is compiled with ``nvcc`` for ``sm_90a`` at first use into the
-package's ignored ``_build/`` directory as a plain-C shared library and
-loaded with ctypes. A CUDA tensor launches the kernel or raises; a CPU
+build directory (parallel/compile_cache.py: the package's ignored
+``_build/`` unless ``VLOG_COMPILE_CACHE_DIR`` is set) as a plain-C shared
+library and loaded with ctypes. A CUDA tensor launches the kernel or raises; a CPU
 tensor takes the plain PyTorch version (ops/resize.py
 ``apply_resize_matrices``). There is no fallback from one to the other.
 
@@ -38,10 +39,11 @@ import torch
 
 from vlog_tpu_torch.ops.resize import (apply_resize_matrices, band_form,
                                        resize_yuv420_with)
+from vlog_tpu_torch.parallel.compile_cache import (ensure_compile_cache,
+                                                   note_build)
 
 _PKG = Path(__file__).resolve().parent.parent
 _SOURCE = _PKG / "csrc" / "fused_resize.cu"
-_BUILD_DIR = _PKG / "_build"
 _LIB_NAME = "libvt_fused_resize.so"
 _NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
                "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
@@ -60,6 +62,7 @@ build_log = ""          # nvcc's output of the last build (ptxas -v report)
 build_seconds = 0.0
 
 _LOCK = threading.Lock()
+_COUNT_LOCK = threading.Lock()   # launches: the dispatch and host threads launch
 _LIB = None
 
 
@@ -75,17 +78,19 @@ def _nvcc() -> str:
 
 
 def build_library() -> Path:
-    """Compile csrc/fused_resize.cu into _build/ (raises on failure)."""
+    """Compile csrc/fused_resize.cu into the build directory
+    (parallel/compile_cache.py; raises on failure)."""
     global build_log, build_seconds
-    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = _BUILD_DIR / _LIB_NAME
+    build = Path(ensure_compile_cache())
+    so = build / _LIB_NAME
     if so.exists() and so.stat().st_mtime >= _SOURCE.stat().st_mtime:
         return so
-    tmp = _BUILD_DIR / f"{_LIB_NAME}.{os.getpid()}.tmp"
+    tmp = build / f"{_LIB_NAME}.{os.getpid()}.tmp"
     cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
     t0 = time.perf_counter()
     proc = subprocess.run(cmd, capture_output=True, text=True)
     build_seconds = time.perf_counter() - t0
+    note_build(build_seconds)
     build_log = proc.stdout + proc.stderr
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log[-4000:]}")
@@ -210,7 +215,8 @@ def _launch(plane: torch.Tensor, a_h: torch.Tensor,
             bw.win.data_ptr(), bw.span, bw.groups, bw.widest, stream)
     if rc != 0:
         raise RuntimeError(f"fused resize kernel launch failed: CUDA error {rc}")
-    launches += LAUNCHES_PER_CALL
+    with _COUNT_LOCK:
+        launches += LAUNCHES_PER_CALL
     return out.reshape(lead + (dst_h, dst_w))
 
 

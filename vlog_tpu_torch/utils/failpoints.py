@@ -17,6 +17,10 @@ site                where it fires
 ``asr.batch``       engine tick, before the batched decode forward; every
                     job with a window in the batch gets the failure, the
                     engine survives and keeps ticking
+``backend.pull``    in the pipeline executor's consumer stage, before a
+                    rung's device->host pull
+``backend.entropy`` in the pipeline executor's consumer stage, after the
+                    pull, before the rung's host entropy coding
 ==================  =====================================================
 
 :func:`arm_from_spec` (and therefore ``VLOG_FAILPOINTS``, read at
@@ -52,6 +56,9 @@ SITES: dict[str, str] = {
     "asr.batch": "ASR engine tick, before the batched decode forward; "
                  "every job in the batch gets the failure, the engine "
                  "keeps ticking",
+    "backend.pull": "pipeline executor, before a rung's device->host pull",
+    "backend.entropy": "pipeline executor, before a rung's host entropy "
+                       "coding",
 }
 
 
@@ -79,6 +86,17 @@ class _Failpoint:
 _active: dict[str, _Failpoint] = {}
 _lock = threading.Lock()
 _rng = random.Random(0)
+
+# Fire observers: called with the site name on every fire, outside the
+# lock and before the raise (the metrics plane counts fires per site);
+# an observer that raises never masks the injected fault.
+_observers: list = []
+
+
+def add_observer(fn) -> None:
+    """Register a ``fn(site: str)`` called on every failpoint fire."""
+    if fn not in _observers:
+        _observers.append(fn)
 
 
 def arm(site: str, *, count: int | None = None, prob: float | None = None,
@@ -149,7 +167,20 @@ def hit(site: str) -> None:
         if fp.prob is not None and _rng.random() >= fp.prob:
             return
         fp.fires += 1
+    for fn in list(_observers):
+        try:
+            fn(site)
+        except Exception:  # noqa: BLE001 — instrumentation never masks
+            pass           # the injected fault
     raise FailpointError(site)
+
+
+def counters() -> dict[str, dict[str, int]]:
+    """Hit/fire counters per armed site."""
+    with _lock:
+        return {s: {"hits": fp.hits, "fires": fp.fires,
+                    "budget": -1 if fp.count is None else fp.count}
+                for s, fp in _active.items()}
 
 
 if os.environ.get(ENV_VAR):

@@ -173,6 +173,10 @@ def process_video(
     faults.maybe_inject_device_fault()
     be = backend or select_backend(device=device)
     plan = be.plan(info, rungs, out_dir, **plan_opts)
+    # under a slot lease the job's device work goes to the lease's device
+    from vlog_tpu_torch.parallel.scheduler import device_for_run
+
+    dev = device_for_run(be.device)
     if plan.streaming_format == "hls_ts" and audio and info.audio_codec:
         # Classic HLS muxes audio INTO each variant's TS; pre-encode one
         # ADTS stream per distinct ladder audio bitrate for the backend
@@ -191,7 +195,7 @@ def process_video(
                                 if r.audio_bitrate}):
                 t1 = clock()
                 aenc = AacEncoder(sample_rate=norm.sample_rate, channels=2,
-                                  bitrate=rate, device=be.device)
+                                  bitrate=rate, device=dev)
                 frames = split_adts_frames(aenc.encode_adts(norm.pcm))
                 plan.audio_adts[rate] = (frames, norm.sample_rate)
                 step_s[f"audio_{rate // 1000}k"] = clock() - t1
@@ -216,7 +220,7 @@ def process_video(
             audio_refs = encode_audio_renditions(
                 src_audio, out_dir, bitrates,
                 segment_duration_s=plan.segment_duration_s, resume=resume,
-                device=be.device, stage_s=step_s)
+                device=dev, stage_s=step_s)
             if audio_refs and run.variants:
                 atomic_write_text(out_dir / "master.m3u8",
                     hls.master_playlist(run.variants, audio=audio_refs))
