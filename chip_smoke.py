@@ -24,10 +24,10 @@ Phases (any failure exits non-zero; none is caught):
    it; the card's clocks, temperature and power before and after;
 4. the integer stages (intra, P, deblock) on CPU and on CUDA from the
    same uint8 frames: levels, MVs and reconstructions must be identical;
-5. the slice: the first 12 frames of a seeded synthetic 1920x1080 Y4M
+5. the slice: the first 8 frames of a seeded synthetic 1920x1080 Y4M
    through ``TorchBackend(device="cuda").plan/run`` with the defaults
    (default ladder, thumbnail, resume, the executor at depth 2: one
-   24-frame chain cut to 12 frames, one dispatch); ``stage_s`` must hold
+   24-frame chain cut to 8 frames, one dispatch); ``stage_s`` must hold
    the reference's stage keys and the executor's gauges
    (``max_in_flight`` >= 1); the CMAF tree must parse with the port's
    own readers, the kernel's launch counter must rise by 3 scaled rungs
@@ -53,8 +53,8 @@ Phases (any failure exits non-zero; none is caught):
    EXT-X-MEDIA, ``manifest.mpd`` with the audio adaptation set,
    ``outputs.json`` verifying the tree, one ``qualities`` row per rung,
    the seconds of each step; the run's frames 0-1 bit-identical to the
-   port's CPU decode of the same samples; frame 3 read on a fresh
-   source equal to the run's frame 3 (a read that starts mid-GOP);
+   port's CPU decode of the same samples; frame 1 read on a fresh
+   source equal to the run's frame 1 (a read that starts mid-GOP);
    ``decode_s`` split into the host parse, the reconstruction and the
    deblocking filter;
    pipeline_ts: the same MP4, the 360p rung, ``hls_ts``: whole 188-byte
@@ -118,6 +118,34 @@ Phases (any failure exits non-zero; none is caught):
    Chrome trace names the resize kernel; ``compile_seconds()`` of the
    build phase (cold) and of a fresh process on the warm build
    directory (0);
+10d. daemon: the port's ``WorkerDaemon(device="cuda")`` over a sqlite
+   queue in the work directory (the port's ``create_all``), the
+   registry's torch backend and ``get_scheduler()`` (one card, one
+   slot), driven by ``run()`` until the queue is empty: the pipeline
+   phase's A/V MP4 transcoded with the default 4-rung ladder and 3
+   audio renditions, its first attempt hit by ``device.fault`` (refunded
+   as ``device_fault``, the card quarantined to 0 slots and reinstated
+   by the probe loop at ``VLOG_DEVICE_PROBE_INTERVAL_S`` = 0.5 s), then
+   ready with 4 ``video_qualities`` rows and ``outputs.json`` verifying
+   the tree; its sprite and transcription jobs (the tiny random-weight
+   Whisper) on the card; a 35 s WAV transcribed (2 windows); an HEVC
+   re-encode of the 24-frame source; with 6-frame dispatches, an HEVC
+   re-encode whose dispatch thread starts ``handle_command("profile")``
+   at its first ladder resize (1 s: the Chrome trace names
+   ``streaming_resize_kernel``), and one whose first attempt a 2 s
+   timeout cancels at the first batch boundary (no ``vlog-pipe*`` or
+   ``vlog-decode*`` thread left, the rise of
+   ``torch.cuda.memory_allocated()`` under DAEMON_MEM_RISE_MAX) before
+   its retry completes; every job completed at progress 100 with its
+   spans in ``job_spans`` (the transcode's ``stage.*`` keys the
+   reference's), launches per job (12, 3, 12, 39, 39; 0 for the
+   transcriptions), ``ping``, ``stats`` (the mesh snapshot) and
+   ``get_metrics`` (CUDA initialized, bytes in use); each job's
+   enqueue-to-complete and span seconds printed; then, where ``aiohttp``
+   is installed, ``python -m vlog_tpu_torch.worker.daemon`` in a
+   subprocess for one HEVC re-encode, its health routes, SIGTERM: the
+   drain and exit code 0 (without ``aiohttp`` it prints that the CLI is
+   tested on the CPU only);
 11. asr: Whisper at whisper-small width (seeded random weights, a
    synthetic vocabulary at whisper-small's special-token ids, written as
    a checkpoint directory) on a seeded 100 s WAV of voiced-like bursts
@@ -178,10 +206,10 @@ THUMB_MAX_BLOCK_SHARE = 1e-3
 
 SRC_H, SRC_W = 1080, 1920
 FRAMES = 24             # one full 24-frame I+P chain: one dispatch
-SLICE_FRAMES = 12       # the slice: one I+P chain cut to 12 frames
+SLICE_FRAMES = 8        # the slice: one I+P chain cut to 8 frames
 INTRA_FRAMES = 8        # one intra dispatch (frame_batch 8)
 MP4_FRAMES = 4          # samples of the I+P MP4 (1 IDR + 3 P: a cut chain)
-SEEK_FRAME = 3          # read mid-GOP on a fresh source
+SEEK_FRAME = 1          # read mid-GOP on a fresh source
 SPRITE_INTRA_FRAMES = 8  # samples of the all-intra MP4 (one decode chunk)
 SHORT_SEG_S = 0.25      # resume and TS: 6-frame segments and chains,
 SHORT_BATCH = 6         # one chain per dispatch
@@ -193,18 +221,22 @@ CLOCKS_QUERY = ("--query-gpu=clocks.sm,clocks.mem,clocks.max.sm,"
                 "temperature.gpu,power.draw")
 RUNG_SHAPES = ((720, 1280), (480, 854), (360, 640))
 # Frames per kernel call on the driven paths: a 24-frame chain (hevc,
-# the scheduler's HEVC job), the slice's chain cut to 12 frames, an
-# intra dispatch, a 6-frame chain (resume, ts, runtime), the MP4's cut
-# 4-frame chain, the thumbnail's one frame (the 720p rung's shapes). The
-# kernel phase holds the kernel to its plain version at each; every
-# backend phase checks that its plan calls with one.
-COMPARE_N = (FRAMES, SLICE_FRAMES, INTRA_FRAMES, SHORT_BATCH, MP4_FRAMES, 1)
+# the scheduler's HEVC job, the daemon's re-encode), the slice's chain
+# cut to 8 frames and an intra dispatch, a 6-frame chain (resume, ts,
+# runtime, the daemon's 6-frame dispatches), the MP4's cut 4-frame chain
+# (pipeline, the daemon's transcode), the thumbnail's one frame (the
+# 720p rung's shapes). The kernel phase holds the kernel to its plain
+# version at each; every backend phase checks that its plan calls with
+# one.
+COMPARE_N = tuple(dict.fromkeys((FRAMES, SLICE_FRAMES, INTRA_FRAMES,
+                                 SHORT_BATCH, MP4_FRAMES, 1)))
 # Sprite tiles (the default 160x90) of the 1080p sources, at the frames
-# per call of the sprite phase's two runs: a full decode chunk of 8 and
-# the skipping run's 2 tiles.
+# per call of the sprite phase's two runs (a full decode chunk of 8, the
+# skipping run's 2 tiles) and of the daemon's sprite job (the MP4's one
+# tile at the default 10 s interval).
 SPRITE_SHAPES = (((SRC_H, SRC_W), (90, 160)),
                  ((SRC_H // 2, SRC_W // 2), (45, 80)))
-SPRITE_N = (8, 2)
+SPRITE_N = (8, 2, 1)
 SPRITE_SKIP_INTERVAL_S = 2 / 24     # tiles at frames 0 and 2 of 4
 
 # AAC: the MP4 sources' track, and the aac phase (one default 6 s
@@ -2287,6 +2319,524 @@ def phase_runtime(sources: dict, work: Path, compile_cold: float) -> int:
         {k: round(v, 2) for k, v in part_s.items()}))
     return launches
 
+
+# The daemon phase: the worker daemon on a sqlite queue in the work dir.
+DAEMON_PROBE_S = 0.5        # VLOG_DEVICE_PROBE_INTERVAL_S for the phase
+DAEMON_TIMEOUT_S = 2.0      # the cancelled attempt's timeout envelope
+# The rise of torch.cuda.memory_allocated() across a cancelled attempt:
+# read when the attempt's handler starts and again when its retry's
+# starts. The caches a run fills (the resize matrices' band forms, the
+# thumbnail matrices) are in place after the identical job before it;
+# what may remain is one cuBLAS workspace, when the attempt ran on a
+# pool thread whose handle had not yet met the device's compute stream
+# (torch keeps one per pair; 32 MiB as this phase measured it on an
+# NVIDIA H100 80GB HBM3 at 700 W). One 6-frame 1080p HEVC batch left
+# referenced (its planes, levels and reconstructions on four rungs) is
+# larger than this.
+DAEMON_MEM_RISE_MAX = 64 << 20
+DAEMON_QUEUE_TIMEOUT_S = 600.0
+DAEMON_CLI_TIMEOUT_S = 180.0
+HEVC_PAYLOAD = {"codec": "h265", "streaming_format": "cmaf"}
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _daemon_cli(d: Path, src: Path) -> dict:
+    """``python -m vlog_tpu_torch.worker.daemon`` in a subprocess for one
+    HEVC re-encode, its health server read, then SIGTERM: the drain and
+    exit code 0. Needs ``aiohttp`` (the health server), which the card's
+    machine may lack; then the CLI is tested on the CPU only."""
+    import asyncio
+    import os
+    import signal
+    import sqlite3
+    import urllib.request
+
+    try:
+        import aiohttp  # noqa: F401
+    except ImportError:
+        log("daemon cli: aiohttp is not installed on this machine; the "
+            "worker CLI is tested on the CPU only "
+            "(tests/test_torch_worker_cli.py)")
+        return {"cli": "not run: no aiohttp"}
+    from vlog_tpu_torch.db import Database, create_all
+    from vlog_tpu_torch.enums import JobKind
+    from vlog_tpu_torch.jobs import claims, videos as vids
+
+    db_path = d / "cli.db"
+
+    async def seed() -> int:
+        db = Database(f"sqlite:///{db_path}")
+        await db.connect()
+        await create_all(db)
+        video = await vids.create_video(db, "CLI", source_path=str(src))
+        job = await claims.enqueue_job(db, video["id"], JobKind.REENCODE,
+                                       payload=HEVC_PAYLOAD)
+        await db.disconnect()
+        return job
+
+    job_id = asyncio.run(seed())
+    port = _free_port()
+    env = {**os.environ, "VLOG_BASE_DIR": str(d / "cli"),
+           "VLOG_WORKER_POLL_INTERVAL": "0.2",
+           "VLOG_WORKER_HEALTH_PORT": str(port), "PYTHONPATH": str(ROOT)}
+    t0 = time.perf_counter()
+    log_path = d / "cli.log"
+    with open(log_path, "w") as log_fp:
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "vlog_tpu_torch.worker.daemon", "--name",
+             "smoke-cli", "--db", f"sqlite:///{db_path}", "--kinds",
+             "reencode"], cwd=ROOT, env=env, stdout=log_fp,
+            stderr=subprocess.STDOUT)
+    try:
+        done = None
+        deadline = time.monotonic() + DAEMON_CLI_TIMEOUT_S
+        while done is None and time.monotonic() < deadline \
+                and proc.poll() is None:
+            time.sleep(0.2)
+            with sqlite3.connect(db_path) as con:
+                done = con.execute(
+                    "SELECT completed_at FROM jobs WHERE id=?",
+                    (job_id,)).fetchone()[0]
+        t_job = time.perf_counter() - t0
+        if done is None:
+            proc.kill()
+            proc.wait()
+            fail("daemon cli: the job did not complete: "
+                 + log_path.read_text()[-3000:])
+        health = {}
+        for route in ("/health", "/ready", "/metrics"):
+            with urllib.request.urlopen(f"http://127.0.0.1:{port}{route}",
+                                        timeout=10) as r:
+                health[route] = (r.status, len(r.read()))
+        proc.send_signal(signal.SIGTERM)
+        proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    out = log_path.read_text()
+    if proc.returncode != 0 or "entering drain (SIGTERM)" not in out:
+        fail(f"daemon cli: exit code {proc.returncode} after SIGTERM: "
+             + out[-3000:])
+    if any(s != 200 for s, _ in health.values()):
+        fail(f"daemon cli: health routes {health}")
+    with sqlite3.connect(db_path) as con:
+        status = con.execute(
+            "SELECT status FROM workers WHERE name='smoke-cli'").fetchone()
+    if status != ("offline",):
+        fail(f"daemon cli: worker row {status} after the drain")
+    return {"cli_job_s": round(t_job, 2), "health": health,
+            "exit_code": proc.returncode, "worker": status[0]}
+
+
+def phase_daemon(work: Path, ip_path: Path, sources: dict) -> int:
+    """The port's ``WorkerDaemon(device="cuda")`` over a sqlite queue, the
+    registry's torch backend and ``get_scheduler()``, driven by ``run()``
+    until the queue is empty: the pipeline phase's A/V MP4 transcoded
+    (its first attempt hit by ``device.fault``: refunded, the card
+    quarantined and reinstated by the probe loop), its sprite and
+    transcription jobs, a 35 s WAV transcribed, an HEVC re-encode of the
+    24-frame source; then with 6-frame dispatches an HEVC re-encode with
+    a 1 s profile session from its first resize, and one whose first
+    attempt a timeout cancels
+    between dispatches (no executor thread left, the allocated bytes held
+    to a bound) before its retry completes; the command verbs; the CLI."""
+    import asyncio
+    import os
+    import threading
+
+    from vlog_tpu_torch import config
+    from vlog_tpu_torch.asr.engine import reset_engine
+    from vlog_tpu_torch.asr.model import WhisperConfig
+    from vlog_tpu_torch.asr.synthetic import write_checkpoint
+    from vlog_tpu_torch.backends import get_backend
+    from vlog_tpu_torch.db import Database, create_all
+    from vlog_tpu_torch.enums import JobKind
+    from vlog_tpu_torch.jobs import claims, videos as vids
+    from vlog_tpu_torch.media.audio import AudioData, write_wav
+    from vlog_tpu_torch.media.probe import get_video_info
+    from vlog_tpu_torch.obs.trace import STAGE_KEYS
+    from vlog_tpu_torch.ops import fused_resize
+    from vlog_tpu_torch.ops.fused_resize import resize_yuv420
+    from vlog_tpu_torch.parallel import hevc_ladder
+    from vlog_tpu_torch.parallel.scheduler import get_scheduler
+    from vlog_tpu_torch.storage import integrity
+    from vlog_tpu_torch.utils import failpoints
+    from vlog_tpu_torch.worker import pipeline as pipeline_mod
+    from vlog_tpu_torch.worker.daemon import WorkerDaemon
+    from vlog_tpu_torch.worker.pipeline import process_video
+
+    d = work / "daemon"
+    d.mkdir()
+    ckpt = work / "whisper-tiny"
+    if not ckpt.exists():
+        write_checkpoint(ckpt, WhisperConfig(**TINY_WHISPER), seed=ASR_SEED)
+    wav = d / "speech.wav"
+    write_wav(wav, AudioData(pcm=_asr_audio(ASR_SEED)[None, :int(
+        SCHED_WAV_S * 16000)], sample_rate=16000))
+    backend = get_backend("torch")
+    sched = get_scheduler()
+    if backend.device.type != "cuda" or sched.devices != (
+            torch.device("cuda", 0),) or sched.slots != 1:
+        fail(f"daemon: backend on {backend.device}, scheduler "
+             f"{sched.snapshot()}")
+    # every kernel call of the phase's plans is at a count the kernel
+    # phase held
+    a_info, b_info = get_video_info(ip_path), get_video_info(sources[FRAMES])
+    _frames_per_call(backend.plan(a_info, out_dir=d / "p"), "daemon transcode",
+                     MP4_FRAMES)
+    _frames_per_call(backend.plan(b_info, out_dir=d / "p", codec="h265"),
+                     "daemon re-encode", FRAMES)
+    _frames_per_call(backend.plan(b_info, out_dir=d / "p", codec="h265",
+                                  segment_duration_s=SHORT_SEG_S,
+                                  frame_batch=SHORT_BATCH),
+                     "daemon 6-frame re-encode", FRAMES)
+    saved = {k: getattr(config, k) for k in (
+        "RETRY_BACKOFF_BASE_S", "DEVICE_PROBE_INTERVAL_S", "PROFILE_DIR",
+        "SEGMENT_DURATION_S", "TPU_FRAME_BATCH", "transcode_timeout_s")}
+    os.environ["VLOG_DEVICE_PROBE_INTERVAL_S"] = str(DAEMON_PROBE_S)
+    config.DEVICE_PROBE_INTERVAL_S = DAEMON_PROBE_S
+    config.RETRY_BACKOFF_BASE_S = 0.0
+    config.PROFILE_DIR = str(d / "profiles")
+    timeouts: list[float] = []     # one-shot timeout envelopes
+
+    def timeout_s(duration_s, rung):
+        return timeouts.pop() if timeouts else saved["transcode_timeout_s"](
+            duration_s, rung)
+
+    config.transcode_timeout_s = timeout_s
+
+    events: list[dict] = []        # job outcomes, in order
+    quarantine: list = []
+    probes: list = []
+    report, probe = sched.report_device_fault, sched.probe_quarantined
+
+    def spy_report(lease, **kw):
+        newly = report(lease, **kw)
+        quarantine.append({"devices": [str(x) for x in newly],
+                           "slots": sched.snapshot()["slots"]})
+        return newly
+
+    def spy_probe(*a, **kw):
+        res = probe(*a, **kw)
+        probes.append({str(k): v for k, v in res.items()})
+        return res
+
+    sched.report_device_fault, sched.probe_quarantined = spy_report, spy_probe
+
+    async def on_event(event: str, payload: dict) -> None:
+        events.append({
+            "event": event, "video_id": payload.get("video_id"),
+            "kind": payload.get("kind"), "error": payload.get("error"),
+            "launches": fused_resize.launches, "t": time.perf_counter(),
+            "allocated": torch.cuda.memory_allocated(),
+            "executor_threads": [t.name for t in threading.enumerate()
+                                 if t.name.startswith(("vlog-pipe",
+                                                       "vlog-decode"))]})
+
+    hooks: dict = {}               # video id -> fn(done, supervisor)
+    job_video: dict = {}
+    # video id -> allocated bytes when each attempt's handler started
+    allocated_at_start: dict = {}
+    notes: dict = {"hook_errors": []}
+
+    async def drive():
+        db = Database(f"sqlite:///{d / 'vlog.db'}")
+        await db.connect()
+        await create_all(db)
+        daemon = WorkerDaemon(
+            db, name="smoke-w1", device="cuda", backend=backend,
+            scheduler=sched, video_dir=d / "videos",
+            transcription_model_dir=str(ckpt), poll_interval_s=0.1,
+            heartbeat_interval_s=5.0, progress_min_interval_s=0.0,
+            on_event=on_event)
+        loop = asyncio.get_running_loop()
+        dispatch, make_cb = daemon._dispatch, daemon._make_progress_cb
+
+        async def spy_dispatch(job):
+            job_video[job["id"]] = job["video_id"]
+            return await dispatch(job)
+
+        def hooked_cb(job_id, total_hint, rung_names):
+            cb = make_cb(job_id, total_hint, rung_names)
+            allocated_at_start.setdefault(job_video.get(job_id), []).append(
+                torch.cuda.memory_allocated())
+            hook = hooks.pop(job_video.get(job_id), None)
+            if hook is None:
+                return cb
+            sup = daemon._sup()
+            first = [True]
+
+            def wrapped(done, total, msg):
+                if first[0]:
+                    first[0] = False
+                    try:
+                        hook(done, sup)
+                    except Exception as exc:  # noqa: BLE001 — checked below
+                        notes["hook_errors"].append(repr(exc))
+                return cb(done, total, msg)
+            return wrapped
+
+        daemon._dispatch, daemon._make_progress_cb = spy_dispatch, hooked_cb
+
+        def profiled_process_video(source, out_dir, **kw):
+            if Path(out_dir).name == "profiled":
+                notes["profile_armed"] = True
+            return process_video(source, out_dir, **kw)
+
+        def profiled_resize(*args):
+            # the profiled job's first ladder resize, on its dispatch
+            # thread: the 1 s session is running when these kernels run
+            if notes.get("profile_armed") and "profile" not in notes:
+                fut = asyncio.run_coroutine_threadsafe(daemon.handle_command(
+                    "profile", {"duration_s": 1, "label": "daemon"}), loop)
+                notes["profile"] = fut.result(30)
+            return resize_yuv420(*args)
+
+        pipeline_mod.process_video = profiled_process_video
+        hevc_ladder.resize_yuv420 = profiled_resize
+
+        def cancel_hook(done, sup):
+            # dispatch 1 is done: hold its batch-done callback until the
+            # timeout fires, so the cancel lands at this boundary
+            notes["cancel_done"] = done
+            deadline = time.monotonic() + 60
+            while not sup._cancel.is_set() and time.monotonic() < deadline:
+                time.sleep(0.01)
+            notes["cancel_reason"] = sup._cancel_reason
+
+        async def enqueue(title, src, kind=JobKind.TRANSCODE, payload=None,
+                          hook=None):
+            video = await vids.create_video(db, title, source_path=str(src))
+            if hook is not None:
+                hooks[video["id"]] = hook
+            await claims.enqueue_job(db, video["id"], kind, payload=payload)
+            return video
+
+        async def wait_idle():
+            deadline = time.monotonic() + DAEMON_QUEUE_TIMEOUT_S
+            while time.monotonic() < deadline:
+                await asyncio.sleep(0.1)
+                if runner.done():
+                    runner.result()
+                    fail("daemon: run() ended early")
+                rows = await db.fetch_all("SELECT * FROM jobs")
+                if rows and not daemon._tasks and all(
+                        r["completed_at"] or r["failed_at"] for r in rows):
+                    return
+            fail("daemon: the queue did not drain in time")
+
+        failpoints.arm("device.fault", count=1)
+        fused_resize.launches = 0
+        t_run = time.perf_counter()
+        runner = asyncio.create_task(daemon.run())
+        try:
+            vid = {"upload": await enqueue("Upload", ip_path),
+                   "speech": await enqueue("Speech", wav,
+                                           JobKind.TRANSCRIPTION),
+                   "hevc": await enqueue("HEVC", sources[FRAMES],
+                                         JobKind.REENCODE, HEVC_PAYLOAD)}
+            await wait_idle()
+            # 6-frame dispatches (four per re-encode of 24 frames)
+            config.SEGMENT_DURATION_S = SHORT_SEG_S
+            config.TPU_FRAME_BATCH = SHORT_BATCH
+            vid["profiled"] = await enqueue("Profiled", sources[FRAMES],
+                                            JobKind.REENCODE, HEVC_PAYLOAD)
+            await wait_idle()
+            timeouts.append(DAEMON_TIMEOUT_S)
+            vid["cancelled"] = await enqueue("Cancelled", sources[FRAMES],
+                                             JobKind.REENCODE, HEVC_PAYLOAD,
+                                             hook=cancel_hook)
+            await wait_idle()
+            t_queue = time.perf_counter() - t_run
+            verbs = {v: await daemon.handle_command(v, {})
+                     for v in ("ping", "stats", "get_metrics")}
+        finally:
+            daemon.request_stop()
+            await asyncio.wait_for(runner, 120)
+            failpoints.reset()
+            pipeline_mod.process_video = process_video
+            hevc_ladder.resize_yuv420 = resize_yuv420
+        rows = {t: await db.fetch_all(f"SELECT * FROM {t} ORDER BY id")
+                for t in ("jobs", "videos", "video_qualities", "job_failures",
+                          "job_spans", "workers")}
+        await db.disconnect()
+        return vid, rows, verbs, t_queue
+
+    t0 = time.perf_counter()
+    try:
+        vid, rows, verbs, t_queue = asyncio.run(drive())
+    finally:
+        for k, v in saved.items():
+            setattr(config, k, v)
+        os.environ.pop("VLOG_DEVICE_PROBE_INTERVAL_S", None)
+        sched.report_device_fault, sched.probe_quarantined = report, probe
+        reset_engine()
+    wall = time.perf_counter() - t0
+    launches = fused_resize.launches
+    # per job: enqueue-to-complete seconds and its steps' seconds
+    for j in rows["jobs"]:
+        spans = {s["name"]: round(s["duration_s"] or 0.0, 3)
+                 for s in rows["job_spans"] if s["job_id"] == j["id"]
+                 and s["name"] != "job"}
+        done_s = (j["completed_at"] - j["created_at"]
+                  if j["completed_at"] else None)
+        log(f"daemon job {j['id']} {j['kind']} (video {j['video_id']}): "
+            f"enqueue to complete {done_s}s, attempts {j['attempt']}; "
+            f"spans (s) " + json.dumps(spans))
+    # launches per job (jobs run one at a time: the counter between
+    # outcome events); the cancelled attempt's depend on when it stopped
+    prev, per_job = 0, []
+    for e in events:
+        per_job.append((e["event"], e["video_id"], e["launches"] - prev))
+        prev = e["launches"]
+    log("daemon launches per job outcome: " + json.dumps(per_job))
+    log("daemon allocated bytes at each attempt's start, by video: "
+        + json.dumps({str(k): v for k, v in allocated_at_start.items()}))
+    if notes["hook_errors"]:
+        fail(f"daemon: hooks failed {notes['hook_errors']}")
+    ids = {k: v["id"] for k, v in vid.items()}
+    by_video = {}
+    for j in rows["jobs"]:
+        by_video.setdefault(j["video_id"], {})[j["kind"]] = j
+    # every job completed, progress 100
+    bad = [(j["id"], j["kind"], j["error"]) for j in rows["jobs"]
+           if j["completed_at"] is None or j["progress"] != 100.0]
+    if bad or len(rows["jobs"]) != 7:
+        fail(f"daemon: {len(rows['jobs'])} jobs, not completed: {bad}")
+    up = by_video[ids["upload"]]
+    if set(up) != {"transcode", "sprite", "transcription"}:
+        fail(f"daemon: the upload's jobs are {sorted(up)}")
+    # the device fault: refunded, quarantined, reinstated, retried
+    fails = {(f["job_id"], f["failure_class"]) for f in rows["job_failures"]}
+    cancelled = by_video[ids["cancelled"]]["reencode"]
+    if fails != {(up["transcode"]["id"], "device_fault"),
+                 (cancelled["id"], "transient")}:
+        fail(f"daemon: job_failures {sorted(fails)}")
+    if up["transcode"]["attempt"] != 1 or cancelled["attempt"] != 2:
+        fail(f"daemon: attempts {up['transcode']['attempt']} (transcode, "
+             f"want 1: refunded), {cancelled['attempt']} (cancelled, want 2)")
+    if quarantine != [{"devices": ["cuda:0"], "slots": 0}] or not any(
+            p == {"cuda:0": True} for p in probes) \
+            or sched.snapshot()["healthy"] != 1:
+        fail(f"daemon: quarantine {quarantine}, probes {probes}, "
+             f"{sched.snapshot()}")
+    # the transcode's tree: 4 rungs, verified, sprites and captions
+    video = next(v for v in rows["videos"] if v["id"] == ids["upload"])
+    quals = [q for q in rows["video_qualities"] if q["video_id"] == video["id"]]
+    out = d / "videos" / video["slug"]
+    files = integrity.load_manifest(out)
+    if video["status"] != "ready" or len(quals) != 4 or not files \
+            or integrity.verify_tree(out, files) \
+            or "captions.vtt" not in files \
+            or not (out / "sprites" / "sprite_01.jpg").exists() \
+            or len(list(out.glob("audio_*k"))) != 3:
+        fail(f"daemon: upload {video['status']}, {len(quals)} qualities, "
+             f"outputs.json {sorted(files or {})}")
+    # the WAV's transcription: windows decoded on the card's engine
+    speech = by_video[ids["speech"]]["transcription"]
+    asr_span = next(s for s in rows["job_spans"]
+                    if s["job_id"] == speech["id"]
+                    and s["name"] == "worker.transcribe")
+    asr_attrs = json.loads(asr_span["attributes"])
+    if asr_attrs.get("asr.windows_total") != 2:
+        fail(f"daemon: the 35 s WAV's transcription span {asr_attrs}")
+    vtt = d / "videos" / next(v["slug"] for v in rows["videos"]
+                              if v["id"] == ids["speech"]) / "captions.vtt"
+    _check_vtt(vtt, vtt.read_text().count("-->"))
+    # the HEVC re-encodes
+    for key in ("hevc", "profiled", "cancelled"):
+        v = next(x for x in rows["videos"] if x["id"] == ids[key])
+        inits = sorted((d / "videos" / v["slug"]).glob("*p/init.mp4"))
+        if v["codec"] != "h265" or len(inits) != 4 \
+                or not all(b"hvcC" in p.read_bytes() for p in inits):
+            fail(f"daemon: re-encode {key}: codec {v['codec']}, "
+                 f"{len(inits)} hvc1 rungs")
+    # the cancel: between dispatches, no thread left, memory bounded
+    failed = [e for e in events if e["event"] == "job.failed"]
+    cancel_ev = next(e for e in failed if e["video_id"] == ids["cancelled"])
+    at_start = allocated_at_start[ids["cancelled"]]
+    if len(at_start) != 2:
+        fail(f"daemon: the cancelled job started {len(at_start)} attempts")
+    rise = at_start[1] - at_start[0]
+    if notes.get("cancel_done") != SHORT_BATCH \
+            or "timed out" not in (cancel_ev["error"] or "") \
+            or cancel_ev["executor_threads"] or rise > DAEMON_MEM_RISE_MAX:
+        fail(f"daemon: cancel at {notes.get('cancel_done')} frames, error "
+             f"{cancel_ev['error']}, threads {cancel_ev['executor_threads']}, "
+             f"allocated rise {rise} (bound {DAEMON_MEM_RISE_MAX})")
+    # the profile session: the trace names the resize kernel
+    from vlog_tpu_torch.obs.profiler import profiler
+
+    prof = notes.get("profile") or {}
+    deadline = time.monotonic() + 30
+    while profiler().status()["profiling"] and time.monotonic() < deadline:
+        time.sleep(0.2)
+    trace = Path(prof.get("dir", d / "none")) / "trace.json"
+    if not prof.get("profiling") or not trace.exists():
+        fail(f"daemon: profile session {prof} wrote no trace")
+    kernels = {e.get("name", "") for e in json.loads(
+        trace.read_text())["traceEvents"] if e.get("cat") == "kernel"}
+    resize_names = sorted(k for k in kernels if "_resize_kernel" in k)
+    if "streaming_resize_kernel" not in " ".join(resize_names):
+        fail(f"daemon: the profile trace names no streaming_resize_kernel "
+             f"among {len(kernels)} kernels")
+    # the verbs
+    metrics = verbs["get_metrics"]["device"]
+    if not verbs["ping"].get("pong") \
+            or (verbs["stats"]["mesh"] or {}).get("slots") != 1 \
+            or verbs["stats"]["completed"] != 7 \
+            or metrics.get("initialized") is not True \
+            or metrics.get("platform") != "cuda" \
+            or not isinstance(metrics.get("bytes_in_use"), int):
+        fail(f"daemon: verbs {verbs}")
+    # spans: every job's, the transcode's stage keys
+    span_jobs = {s["job_id"] for s in rows["job_spans"]}
+    stages = {s["name"] for s in rows["job_spans"]
+              if s["job_id"] == up["transcode"]["id"]
+              and s["name"].startswith("stage.")}
+    if span_jobs != {j["id"] for j in rows["jobs"]} \
+            or stages != {f"stage.{k[:-2]}" for k in STAGE_KEYS}:
+        fail(f"daemon: spans for jobs {sorted(span_jobs)}, stages {stages}")
+    scaled = 3 * 3 * fused_resize.LAUNCHES_PER_CALL
+    thumb = 3 * fused_resize.LAUNCHES_PER_CALL
+    want = {("video.ready", ids["upload"]): scaled + thumb,
+            ("video.sprites_ready", ids["upload"]): 3,
+            ("video.reencoded", ids["hevc"]): scaled + thumb,
+            ("video.reencoded", ids["profiled"]): 4 * scaled + thumb,
+            ("video.reencoded", ids["cancelled"]): 4 * scaled + thumb,
+            ("job.failed", ids["upload"]): 0}
+    got = {(e, v): n for e, v, n in per_job if (e, v) in want}
+    if got != want or any(n for e, v, n in per_job
+                          if e == "video.transcribed"):
+        fail(f"daemon: launches per job {per_job}, want {want}")
+    cli = _daemon_cli(d, sources[TS_FRAMES])
+    log("daemon: " + json.dumps({
+        "wall_s": round(wall, 2), "queue_s": round(t_queue, 2),
+        "launches": launches, "launches_per_job": per_job,
+        "quarantine": quarantine, "probes": probes,
+        "allocated_at_attempt_start": {
+            str(k): v for k, v in allocated_at_start.items()},
+        "cancel": {"at_frames": notes["cancel_done"],
+                   "reason": notes["cancel_reason"],
+                   "allocated_at_attempt_start": at_start,
+                   "allocated_at_failure_event": cancel_ev["allocated"],
+                   "rise": rise, "bound": DAEMON_MEM_RISE_MAX},
+        "profile": {"trace_mb": round(trace.stat().st_size / 2 ** 20, 2),
+                    "kernels": len(kernels), "resize": resize_names},
+        "asr_windows": asr_attrs.get("asr.windows_total"),
+        "verbs": {"stats_mesh": verbs["stats"]["mesh"],
+                  "device": metrics}, **cli}))
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available; nothing was run")
@@ -2337,6 +2887,7 @@ def main() -> int:
     launches["hevc"] = timed("hevc", phase_hevc, sources[FRAMES], work)
     launches["runtime"] = timed("runtime", phase_runtime, sources, work,
                                 compile_cold)
+    launches["daemon"] = timed("daemon", phase_daemon, work, ip_path, sources)
     timed("asr", phase_asr, work)       # fails on any resize launch
     launches["asr"] = 0
     shutil.rmtree(work, ignore_errors=True)

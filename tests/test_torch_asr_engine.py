@@ -201,7 +201,7 @@ def test_engine_survives_a_failed_batch(assets):
 
 def test_submit_failpoint_and_spec(assets):
     with pytest.raises(ValueError):       # a site the port does not have
-        failpoints.arm_from_spec("claims.claim=1")
+        failpoints.arm_from_spec("remote.claim=1")
     assert failpoints.arm_from_spec("asr.submit=1") == ["asr.submit"]
     engine = AsrEngine(assets, batch_windows=2, tick_s=0.0)
     try:

@@ -584,3 +584,106 @@ def test_scheduler_cuda_probe(cuda):
     assert sched.snapshot()["quarantined"] == len(sched.devices)
     assert all(sched.probe_quarantined().values())
     assert sched.snapshot()["healthy"] == len(sched.devices)
+
+
+def test_daemon_poll_once_on_the_card(cuda, tmp_path):
+    """The port's worker daemon on its default device: a tiny transcode
+    claimed from a sqlite queue runs on the card (the selected backend's
+    device, one scaled rung through the kernel), reaches ready, and its
+    heartbeat advertises the card."""
+    import asyncio
+    import json
+
+    import chip_smoke
+    from vlog_tpu_torch import config
+    from vlog_tpu_torch.db import Database, create_all
+    from vlog_tpu_torch.jobs import claims, videos as vids
+    from vlog_tpu_torch.media.y4m import write_y4m
+    from vlog_tpu_torch.worker.daemon import WorkerDaemon
+
+    y, u, v = chip_smoke._smooth_frames(8, 96, 128, seed=2)
+    src = tmp_path / "src.y4m"
+    write_y4m(src, list(zip(y, u, v)), fps_num=8, fps_den=1)
+    rungs = (config.QualityRung("96p", 96, 0, 128_000, base_qp=28),
+             config.QualityRung("64p", 64, 150_000, 96_000, base_qp=30))
+
+    async def go():
+        db = Database(f"sqlite:///{tmp_path / 'q.db'}")
+        await db.connect()
+        await create_all(db)
+        video = await vids.create_video(db, "Card", source_path=str(src))
+        job_id = await claims.enqueue_job(db, video["id"])
+        from vlog_tpu_torch.backends.torch_backend import TorchBackend
+
+        daemon = WorkerDaemon(db, name="card-w", video_dir=tmp_path / "v",
+                              backend=TorchBackend())
+        assert daemon.device == "cuda"
+        before = fused_resize.launches
+        saved = config.ladder_for_source
+        config.ladder_for_source = lambda h: rungs
+        try:
+            assert await daemon.poll_once() is True
+            await daemon._heartbeat()
+        finally:
+            config.ladder_for_source = saved
+        launches = fused_resize.launches - before
+        row = await vids.get_video(db, video["id"])
+        job = await db.fetch_one("SELECT * FROM jobs WHERE id=:i",
+                                 {"i": job_id})
+        worker = await db.fetch_one("SELECT * FROM workers")
+        await db.disconnect()
+        return launches, row, job, json.loads(worker["capabilities"])
+
+    launches, row, job, caps = asyncio.run(go())
+    assert job["completed_at"] is not None and job["progress"] == 100.0
+    assert row["status"] == "ready"
+    # the 64p rung's 3 planes, one dispatch (a thumbnail of a source
+    # narrower than 1280 is not resized)
+    assert launches == 3
+    assert caps["backend"] == "torch" and caps["device_kind"] == "gpu"
+    assert caps["devices"] == [torch.cuda.get_device_name(0)]
+
+
+def test_mgmt_device_info_before_and_after_cuda_init(cuda):
+    """``get_metrics``' device summary never initializes CUDA: before
+    this process touches the card it says so; after, it reports the
+    platform, the device count and the allocator's bytes."""
+    import json
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    code = ("import json, torch\n"
+            "from vlog_tpu_torch.worker import mgmt\n"
+            "a = mgmt._device_info()\n"
+            "init = torch.cuda.is_initialized()\n"
+            "x = torch.ones(1 << 20, device='cuda')\n"
+            "print(json.dumps([a, init, mgmt._device_info()]))\n")
+    root = Path(__file__).resolve().parents[1]
+    out = subprocess.run([sys.executable, "-c", code], cwd=root,
+                         capture_output=True, text=True, check=True,
+                         timeout=120)
+    before, init_after_probe, after = json.loads(out.stdout.splitlines()[-1])
+    assert before == {"initialized": False} and init_after_probe is False
+    assert after["initialized"] is True and after["platform"] == "cuda"
+    assert after["device_count"] == torch.cuda.device_count()
+    assert after["bytes_in_use"] >= 4 << 20
+    assert after["bytes_limit"] > after["bytes_in_use"]
+
+
+def test_compute_stream_reused_across_runs(cuda):
+    """Every run's dispatch queues on the device's one compute stream: a
+    stream per run would leave a cuBLAS workspace allocated for each new
+    (handle, stream) pair, run after run."""
+    from vlog_tpu_torch.parallel.executor import dispatch_stream
+
+    a = torch.randn(64, 64, dtype=torch.float64, device=cuda)
+    streams, allocated = [], []
+    for _ in range(3):
+        with dispatch_stream(cuda):
+            streams.append(torch.cuda.current_stream())
+            float((a @ a).sum())
+        torch.cuda.synchronize()
+        allocated.append(torch.cuda.memory_allocated())
+    assert streams[0] == streams[1] == streams[2] != torch.cuda.default_stream()
+    assert allocated[1] == allocated[2] <= allocated[0]

@@ -199,5 +199,9 @@ def test_backend_encode_failpoint_at_run_entry(tmp_path):
 def test_new_sites_are_registered():
     assert {"device.fault", "backend.encode", "storage.verify"} <= \
         set(failpoints.SITES)
+    # the worker daemon's job plane registers its sites too
+    assert {"claims.claim", "db.commit", "daemon.compute", "db.claim",
+            "drain.deadline"} <= set(failpoints.SITES)
+    # the remote worker is not ported: its sites stay unknown
     with pytest.raises(ValueError, match="unknown failpoint site"):
-        failpoints.arm_from_spec("claims.claim=1")
+        failpoints.arm_from_spec("remote.upload=1")

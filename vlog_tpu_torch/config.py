@@ -5,7 +5,8 @@ GOP structure, entropy, deblocking, search radius, batch and pipeline
 depth, sprite sheets, transcription, the device runtime), so one
 environment configures both. Only what the port's H.264 paths (I+P or
 intra-only, CMAF or MPEG-TS), its HEVC path, its pipeline, its sprite
-worker, its transcription worker and its device runtime read is here.
+worker, its transcription worker, its device runtime and its worker
+daemon with the job plane under it read is here.
 """
 
 from __future__ import annotations
@@ -55,6 +56,10 @@ def _env_float(name: str, default: float, *, lo: float | None = None,
     return val
 
 
+def _env_path(name: str, default: str) -> Path:
+    return Path(os.environ.get(name, default)).expanduser()
+
+
 def _env_bool(name: str, default: bool) -> bool:
     raw = os.environ.get(name)
     if raw is None:
@@ -65,6 +70,15 @@ def _env_bool(name: str, default: bool) -> bool:
     if low in ("0", "false", "no", "off"):
         return False
     raise ConfigError(f"{name}={raw!r} is not a boolean")
+
+
+# Storage layout and the database (the worker daemon's defaults).
+BASE_DIR: Path = _env_path("VLOG_BASE_DIR", "./data")
+UPLOAD_DIR: Path = _env_path("VLOG_UPLOAD_DIR", str(BASE_DIR / "uploads"))
+VIDEO_DIR: Path = _env_path("VLOG_VIDEO_DIR", str(BASE_DIR / "videos"))
+TMP_DIR: Path = _env_path("VLOG_TMP_DIR", str(BASE_DIR / "tmp"))
+DATABASE_URL: str = _env_str("VLOG_DATABASE_URL",
+                             f"sqlite:///{BASE_DIR / 'vlog.db'}")
 
 
 @dataclass(frozen=True)
@@ -135,7 +149,6 @@ DEVICE_PROBE_INTERVAL_S: float = _env_float(
 COMPILE_CACHE_DIR: str = _env_str("VLOG_COMPILE_CACHE_DIR", "")
 # Profiler sessions: artifact root (empty = BASE_DIR/profiles) and the
 # cap on one session's duration.
-BASE_DIR: Path = Path(os.environ.get("VLOG_BASE_DIR", "./data")).expanduser()
 PROFILE_DIR: str = _env_str("VLOG_PROFILE_DIR", "")
 PROFILE_MAX_S: float = _env_float("VLOG_PROFILE_MAX_S", 60.0, lo=1.0)
 
@@ -167,3 +180,92 @@ ASR_QUEUE_MAX: int = _env_int("VLOG_ASR_QUEUE_MAX", 256, lo=8, hi=8192)
 # Whisper weight storage: "f32", "bf16" (cast at use) or "int8"
 # (per-output-channel symmetric, dequantized at use).
 WHISPER_QUANT: str = _env_str("VLOG_WHISPER_QUANT", "f32")
+
+
+# The worker daemon and the job plane under it (db/, jobs/, worker/),
+# the JAX package's names, defaults and bounds.
+#
+# Job timeout envelope: duration x multiplier x the rung's factor,
+# clamped.
+TRANSCODE_TIMEOUT_MULTIPLIER: float = _env_float("VLOG_TIMEOUT_MULTIPLIER",
+                                                 2.0, lo=0.1)
+TIMEOUT_MIN_S: float = 300.0
+TIMEOUT_MAX_S: float = 4 * 3600.0
+MAX_VIDEO_DURATION_S: float = 7 * 24 * 3600.0
+_RESOLUTION_TIMEOUT_MULTIPLIERS: dict[str, float] = {
+    "360p": 1.0, "480p": 1.2, "720p": 1.5, "1080p": 2.0, "1440p": 2.5,
+    "2160p": 3.5,
+}
+
+
+def transcode_timeout_s(duration_s: float, rung_name: str) -> float:
+    """Timeout for one rung of one video (duration x global x resolution)."""
+    mult = _RESOLUTION_TIMEOUT_MULTIPLIERS.get(rung_name, 2.0)
+    raw = duration_s * TRANSCODE_TIMEOUT_MULTIPLIER * mult
+    return min(max(raw, TIMEOUT_MIN_S), TIMEOUT_MAX_S)
+
+
+# Claim leases, heartbeats, polling.
+CLAIM_LEASE_S: int = _env_int("VLOG_CLAIM_LEASE_MINUTES", 30, lo=1) * 60
+HEARTBEAT_INTERVAL_S: int = _env_int("VLOG_HEARTBEAT_INTERVAL", 30, lo=5)
+WORKER_OFFLINE_THRESHOLD_S: int = _env_int("VLOG_WORKER_OFFLINE_THRESHOLD",
+                                           300, lo=30)
+MAX_JOB_ATTEMPTS: int = _env_int("VLOG_MAX_JOB_ATTEMPTS", 3, lo=1, hi=20)
+WORKER_POLL_INTERVAL_S: float = _env_float("VLOG_WORKER_POLL_INTERVAL", 5.0,
+                                           lo=0.1)
+# Jobs per claim transaction, and the expired-lease sweeper's cadence
+# (0 disables the loop).
+CLAIM_BATCH_MAX: int = _env_int("VLOG_CLAIM_BATCH_MAX", 16, lo=1)
+SWEEP_INTERVAL_S: float = _env_float("VLOG_SWEEP_INTERVAL_S", 10.0, lo=0.0)
+
+# Multi-tenant QoS (jobs/qos.py): fleet-wide defaults a tenant inherits
+# when no per-tenant setting is written.
+QOS_STARVATION_S: float = _env_float("VLOG_QOS_STARVATION_S", 30.0, lo=0.1)
+QOS_DEFAULT_WEIGHT: float = _env_float("VLOG_QOS_DEFAULT_WEIGHT", 1.0,
+                                       lo=0.001)
+QOS_MAX_QUEUED: int = _env_int("VLOG_QOS_MAX_QUEUED", 0, lo=0)
+QOS_MAX_INFLIGHT: int = _env_int("VLOG_QOS_MAX_INFLIGHT", 0, lo=0)
+QOS_DEADLINE_BUDGET_S: float = _env_float("VLOG_QOS_DEADLINE_BUDGET_S",
+                                          120.0, lo=0.0)
+QOS_RETRY_AFTER_S: float = _env_float("VLOG_QOS_RETRY_AFTER_S", 5.0, lo=0.1)
+QOS_ALERT_QUEUED: int = _env_int("VLOG_QOS_ALERT_QUEUED", 0, lo=0)
+QOS_ALERT_INTERVAL_S: float = _env_float("VLOG_QOS_ALERT_INTERVAL_S", 60.0,
+                                         lo=1.0)
+QOS_SCALE_TARGET: int = _env_int("VLOG_QOS_SCALE_TARGET", 8, lo=1)
+QOS_WAIT_WINDOW_S: float = _env_float("VLOG_QOS_WAIT_WINDOW_S", 300.0,
+                                      lo=10.0)
+
+# Drain on SIGTERM or a preemption notice (worker/drain.py).
+DRAIN_GRACE_S: float = _env_float("VLOG_DRAIN_GRACE_S", 120.0, lo=0.0)
+PREEMPTION_FILE: str = _env_str("VLOG_PREEMPTION_FILE", "")
+PREEMPTION_URL: str = _env_str("VLOG_PREEMPTION_URL", "")
+PREEMPTION_POLL_S: float = _env_float("VLOG_PREEMPTION_POLL_S", 2.0, lo=0.1)
+
+# Failure plane: retry backoff, the compute breaker, the stall watchdog,
+# the coordination-plane brownout breaker.
+RETRY_BACKOFF_BASE_S: float = _env_float("VLOG_RETRY_BACKOFF_BASE", 30.0,
+                                         lo=0.0)
+RETRY_BACKOFF_CAP_S: float = _env_float("VLOG_RETRY_BACKOFF_CAP", 1800.0,
+                                        lo=0.0)
+BREAKER_FAILURE_THRESHOLD: int = _env_int("VLOG_BREAKER_THRESHOLD", 5, lo=1)
+BREAKER_COOLDOWN_S: float = _env_float("VLOG_BREAKER_COOLDOWN", 60.0, lo=0.0)
+STALL_WINDOW_S: float = _env_float("VLOG_STALL_WINDOW", 900.0, lo=0.0)
+DB_BREAKER_THRESHOLD: int = _env_int("VLOG_DB_BREAKER_THRESHOLD", 3, lo=1)
+DB_BREAKER_COOLDOWN_S: float = _env_float("VLOG_DB_BREAKER_COOLDOWN", 15.0,
+                                          lo=0.0)
+
+# Span persistence to job_spans (metrics stay on either way).
+TRACE_ENABLED: bool = _env_bool("VLOG_TRACE_ENABLED", True)
+# Whether a transcode with audio enqueues its transcription job.
+TRANSCRIPTION_ENABLED: bool = _env_bool("VLOG_TRANSCRIPTION_ENABLED", True)
+# Webhook targets on private or loopback networks are refused unless
+# allowed.
+WEBHOOK_ALLOW_PRIVATE: bool = _env_bool("VLOG_WEBHOOK_ALLOW_PRIVATE", False)
+
+CODE_VERSION: str = "1"
+
+
+def ensure_dirs() -> None:
+    """Create the storage tree (idempotent)."""
+    for p in (BASE_DIR, UPLOAD_DIR, VIDEO_DIR, TMP_DIR):
+        p.mkdir(parents=True, exist_ok=True)

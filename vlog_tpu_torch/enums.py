@@ -1,0 +1,140 @@
+"""Domain enums (a copy of ``vlog_tpu/enums.py`` with identical values:
+the port's worker shares its database with the JAX package's API
+servers, which parse these values off the wire).
+
+Reference parity: api/enums.py:9-159 and worker/hwaccel.py:32-54. Values are
+stored in the database as strings, so members are str-valued.
+"""
+
+from __future__ import annotations
+
+import enum
+
+
+class VideoStatus(str, enum.Enum):
+    PENDING = "pending"          # uploaded, waiting for a worker
+    PROCESSING = "processing"    # claimed, transcode in flight
+    READY = "ready"              # ladder + manifests published
+    FAILED = "failed"            # permanent failure (attempts exhausted)
+    DELETED = "deleted"          # soft-deleted
+
+
+class JobKind(str, enum.Enum):
+    TRANSCODE = "transcode"
+    REENCODE = "reencode"
+    SPRITE = "sprite"
+    TRANSCRIPTION = "transcription"
+
+
+class JobState(str, enum.Enum):
+    """Derived job states (reference: api/job_state.py:48-96).
+
+    These are *derived* from nullable columns (claimed_by, claim_expires_at,
+    completed_at, failed_at, attempt, next_retry_at) rather than stored, so
+    the database can never hold a contradictory state.
+    """
+
+    UNCLAIMED = "unclaimed"
+    CLAIMED = "claimed"
+    EXPIRED = "expired"      # claimed but lease lapsed
+    COMPLETED = "completed"
+    FAILED = "failed"        # terminally failed
+    RETRYING = "retrying"    # failed attempt, retry budget remains, due now
+    BACKOFF = "backoff"      # failed attempt, waiting out next_retry_at
+
+
+class FailureClass(str, enum.Enum):
+    """Per-attempt failure classification (``job_failures`` rows).
+
+    - TRANSIENT: the attempt failed but a retry may succeed (I/O, timeout,
+      flaky backend) — the default for non-permanent ``fail_job`` calls.
+    - PERMANENT: retrying cannot help (bad input, validation failure).
+    - WORKER_CRASH: the claim lease lapsed without a completion or failure
+      report — the worker process is presumed dead (attributed by the
+      expired-claim sweep and by a restarted daemon's startup recovery).
+    - STALLED: compute was cancelled by the stall watchdog — lease renewals
+      kept the claim alive but ``progress`` stopped advancing.
+    - DEVICE_FAULT: the accelerator runtime failed under the job
+      (parallel/faults.py classification) — the job was innocent, so
+      ``fail_job`` refunds the attempt instead of burning budget, and the
+      scheduler quarantines the offending slot's devices.
+    - PREEMPTED: the HOST was evicted (preemption notice / SIGTERM) and
+      the drain grace window lapsed before the attempt finished
+      (worker/drain.py). The job was innocent here too, so the attempt
+      is refunded (bounded like DEVICE_FAULT) and no backoff is stamped
+      — a successor resumes the uploaded partial tree immediately.
+    """
+
+    TRANSIENT = "transient"
+    PERMANENT = "permanent"
+    WORKER_CRASH = "worker_crash"
+    STALLED = "stalled"
+    DEVICE_FAULT = "device_fault"
+    PREEMPTED = "preempted"
+
+
+class GCTarget(str, enum.Enum):
+    """What an orphan-GC sweep reclaimed (storage/gc.py report entries).
+
+    - PART_FILE: a stale ``.part``/``.tmp`` transfer temp in the video tree.
+    - UPLOAD_TEMP: a stale ``.upload-*`` staging file in the upload dir.
+    - ORPHAN_TREE: an output tree under no known video slug.
+    - DELETED_TREE: the output tree of a soft-deleted video past the
+      ``VLOG_GC_DELETED_RETENTION`` grace window.
+    - WORKSPACE: an abandoned worker job workspace (work_dir/{slug}).
+    """
+
+    PART_FILE = "part_file"
+    UPLOAD_TEMP = "upload_temp"
+    ORPHAN_TREE = "orphan_tree"
+    DELETED_TREE = "deleted_tree"
+    WORKSPACE = "workspace"
+
+
+class VideoCodec(str, enum.Enum):
+    H264 = "h264"
+    HEVC = "hevc"
+    AV1 = "av1"
+
+
+class AudioCodec(str, enum.Enum):
+    AAC = "aac"
+    OPUS = "opus"
+    PCM = "pcm"
+    NONE = "none"
+
+
+class StreamingFormat(str, enum.Enum):
+    HLS_TS = "hls_ts"    # legacy MPEG-TS segments
+    CMAF = "cmaf"        # fMP4 segments, HLS + DASH from one set
+
+
+class AcceleratorKind(str, enum.Enum):
+    """Accelerator families a worker can advertise.
+
+    Reference: hwaccel.py HWAccelType (CPU/NVENC/QSV/VAAPI). TPU is the new
+    first-class member this framework exists for. In the port it names
+    the device-ladder backend class that ``required_accelerator`` places
+    jobs for: the port's worker advertises ``tpu`` and says ``backend:
+    "torch"``, ``device_kind: "gpu"`` and the card's name in its
+    capabilities (ROADMAP Queue C).
+    """
+
+    CPU = "cpu"
+    TPU = "tpu"
+    NVENC = "nvenc"
+    QSV = "qsv"
+    VAAPI = "vaapi"
+
+
+class WorkerKind(str, enum.Enum):
+    LOCAL = "local"
+    REMOTE = "remote"
+
+
+class TranscriptionStatus(str, enum.Enum):
+    PENDING = "pending"
+    IN_PROGRESS = "in_progress"
+    COMPLETED = "completed"
+    FAILED = "failed"
+    DISABLED = "disabled"

@@ -1,0 +1,131 @@
+"""Per-kind job finalization shared by the in-process daemon and the
+Worker API's complete endpoint (a copy of
+``vlog_tpu/jobs/finalize.py``).
+
+Reference parity: transcoder.py:2772-2867 (local finalize) and
+worker_api.py:1864-2070 (remote complete) both publish the same state:
+video_qualities rows, status=ready, downstream job enqueue, webhook. One
+module here so the two planes can never drift.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import logging
+from pathlib import Path
+from types import SimpleNamespace
+from typing import Any
+
+from vlog_tpu_torch import config
+from vlog_tpu_torch.db.core import Database, Row, now as db_now
+from vlog_tpu_torch.enums import JobKind
+from vlog_tpu_torch.jobs import claims, qos, videos as vids
+
+log = logging.getLogger("vlog.finalize")
+
+
+async def finalize_transcode(
+    db: Database,
+    job: Row,
+    video: Row,
+    *,
+    probe: Any,
+    qualities: list[dict],
+    thumbnail_path: str | None,
+    streaming_format: str | None = None,
+    codec: str | None = None,
+    enqueue_downstream: bool = True,
+) -> None:
+    """Publish a completed transcode.
+
+    ``probe`` is either a VideoInfo or a plain dict (the HTTP body from a
+    remote worker). Reencodes pass ``enqueue_downstream=False`` — sprites
+    and transcription derive from the unchanged source, so re-running
+    them would burn accelerator hours for identical output.
+    """
+    if isinstance(probe, dict):
+        probe = SimpleNamespace(
+            duration_s=float(probe.get("duration_s") or 0.0),
+            width=int(probe.get("width") or 0),
+            height=int(probe.get("height") or 0),
+            fps=float(probe.get("fps") or 0.0),
+            audio_codec=probe.get("audio_codec"),
+        )
+    await vids.finalize_ready(
+        db, video["id"], probe=probe, qualities=qualities,
+        thumbnail_path=thumbnail_path, streaming_format=streaming_format,
+        codec=codec)
+    rung_names = [q["quality"] for q in qualities]
+    for rn in rung_names:
+        await claims.upsert_quality_progress(
+            db, job["id"], rn, status="completed", progress=100.0)
+    if enqueue_downstream:
+        # downstream jobs inherit the parent transcode's tenant and skip
+        # admission: refusing the sprite/transcription tail of an
+        # already-admitted (and fully paid-for) transcode would strand
+        # the video half-published
+        tenant = job.get("tenant") or qos.DEFAULT_TENANT
+        await claims.enqueue_job(db, video["id"], JobKind.SPRITE,
+                                 tenant=tenant, admit=False)
+        if config.TRANSCRIPTION_ENABLED and getattr(probe, "audio_codec",
+                                                    None):
+            await claims.enqueue_job(db, video["id"], JobKind.TRANSCRIPTION,
+                                     tenant=tenant, admit=False)
+
+
+async def finalize_transcription(
+    db: Database, video_id: int, *, language: str | None, model: str | None,
+    vtt_path: str | None, text: str | None,
+) -> None:
+    t = db_now()
+    await db.execute(
+        """
+        INSERT INTO transcriptions (video_id, language, model, vtt_path,
+                                    full_text, status, created_at,
+                                    completed_at)
+        VALUES (:v, :lang, :m, :p, :txt, 'completed', :t, :t)
+        ON CONFLICT (video_id) DO UPDATE SET language=:lang, model=:m,
+            vtt_path=:p, full_text=:txt, status='completed', error=NULL,
+            completed_at=:t
+        """,
+        {"v": video_id, "lang": language, "m": model, "p": vtt_path,
+         "txt": text, "t": t})
+    await db.execute(
+        "UPDATE videos SET transcription_status='completed', updated_at=:t "
+        "WHERE id=:id", {"t": t, "id": video_id})
+    # Publish captions.vtt through the manifest-verified path: fold its
+    # size+sha256 into the slug tree's outputs.json so the verify
+    # endpoint (POST /api/videos/{id}/verify) covers captions instead of
+    # silently skipping them. Covers local daemon finalizes and remote
+    # completes alike — both pass a vtt_path inside the published tree.
+    if vtt_path:
+        await asyncio.to_thread(_publish_caption_manifest, vtt_path)
+    # captions.vtt just changed under the slug: evict any cached copy
+    # (transcode publish invalidates via vids.finalize_ready already)
+    await vids.invalidate_delivery(db, video_id)
+
+
+def _publish_caption_manifest(vtt_path: str) -> None:
+    """Update ``outputs.json`` next to ``captions.vtt`` with the caption
+    file's size+sha256. A tree without a manifest (pre-integrity upload,
+    or a transcription that outran its transcode) is left alone — the
+    next full manifest write will sweep the vtt in via build_manifest."""
+    from vlog_tpu_torch.storage import integrity
+
+    p = Path(vtt_path)
+    root = p.parent
+    if not p.exists():
+        return
+    try:
+        files = integrity.load_manifest(root)
+        if files is None:
+            return
+        rel = p.name
+        files[rel] = {"size": p.stat().st_size,
+                      "sha256": integrity.sha256_file(p)}
+        integrity.write_manifest(root, files)
+    except (integrity.ManifestError, OSError) as exc:
+        # Manifest refresh is a publication nicety, not a gate: the vtt
+        # itself is already on disk and served.
+        log.warning("caption manifest update failed for %s: %s",
+                    vtt_path, exc)

@@ -6,10 +6,14 @@ reports: per-stage and per-rung busy seconds of a transcode run, the
 pipeline executor's overlap gauges and pad waste, the mesh scheduler's
 slot and quarantine families, the ASR engine's batch families, the
 device-seconds attribution, the profiler's session outcomes and
-failpoint fires. The family names, help texts and labels are the
-reference's, so one dashboard reads both packages. The HTTP-plane
-registry (``Metrics``, which renders database gauges) comes with the
-worker.
+failpoint fires, and the worker's job plane: job lifecycle counts, the
+compute and coordination breakers, retry backoff, drain, span writes,
+alert outcomes, the per-tenant claim wait and the fleet scale hint. The
+family names, help texts and labels are the reference's, so one
+dashboard reads both packages. The worker's health server renders this
+registry at ``/metrics``. The HTTP-plane registry (``Metrics``, which
+renders database gauges for the API servers) is not ported (ROADMAP
+Queue A item 13b).
 
 ``prometheus_client`` is optional: without it every metric object is a
 no-op and renders are empty — metrics are observability, the runtime
@@ -58,6 +62,8 @@ from vlog_tpu_torch.utils import failpoints
 # Transcode stages run minutes at ladder scale; sub-second buckets catch
 # the sprite/transcription tail.
 STAGE_BUCKETS = (0.05, 0.25, 1.0, 5.0, 15.0, 60.0, 300.0, 1800.0)
+
+_BREAKER_STATE_VALUES = {"closed": 0, "half_open": 1, "open": 2}
 
 
 class RuntimeMetrics:
@@ -172,6 +178,60 @@ class RuntimeMetrics:
             "On-demand device profiler session outcomes "
             "(started, completed, rejected, error)",
             ["outcome"], registry=self.registry)
+        # The worker's job plane (worker/daemon.py, worker/breaker.py,
+        # worker/brownout.py, worker/drain.py, jobs/, obs/store.py).
+        self.breaker_transitions = Counter(
+            "vlog_breaker_transitions_total",
+            "Circuit-breaker state transitions", ["state"],
+            registry=self.registry)
+        self.breaker_state = Gauge(
+            "vlog_breaker_state",
+            "Current breaker state (0 closed, 1 half-open, 2 open)",
+            registry=self.registry)
+        self.job_backoff = Counter(
+            "vlog_job_backoff_total",
+            "Failed attempts stamped with retry backoff (next_retry_at)",
+            registry=self.registry)
+        self.worker_jobs = Counter(
+            "vlog_worker_jobs_total",
+            "Worker job lifecycle events (DaemonStats fields)",
+            ["event"], registry=self.registry)
+        self.alerts = Counter(
+            "vlog_alerts_total", "Alert webhook outcomes (AlertMetrics)",
+            ["outcome"], registry=self.registry)
+        self.spans_recorded = Counter(
+            "vlog_spans_recorded_total", "Spans persisted to job_spans",
+            ["origin"], registry=self.registry)
+        self.claim_errors = Counter(
+            "vlog_claim_errors_total",
+            "Transient coordination-plane (DB/API) errors hit by worker "
+            "claim loops", ["source"], registry=self.registry)
+        self.claim_breaker_open = Gauge(
+            "vlog_claim_breaker_open",
+            "1 while the worker's coordination-plane brownout breaker "
+            "is open", registry=self.registry)
+        self.worker_draining = Gauge(
+            "vlog_worker_draining",
+            "1 while this worker is draining (preemption notice, "
+            "SIGTERM, or admin drain)", registry=self.registry)
+        self.drain_seconds = Histogram(
+            "vlog_drain_seconds",
+            "Seconds from drain start until every in-flight claim "
+            "resolved (completed, flushed + requeued, or released)",
+            buckets=(0.5, 2.0, 10.0, 30.0, 60.0, 120.0, 300.0, 600.0),
+            registry=self.registry)
+        self.tenant_claim_wait = Histogram(
+            "vlog_tenant_claim_wait_seconds",
+            "Seconds between a job becoming claimable and its claim, "
+            "by tenant (enqueue-to-claim wait)",
+            ["tenant"],
+            buckets=(0.01, 0.1, 0.5, 2.0, 10.0, 30.0, 120.0, 600.0),
+            registry=self.registry)
+        self.fleet_scale_hint = Gauge(
+            "vlog_fleet_scale_hint",
+            "Suggested worker-count delta from the fleet snapshot "
+            "(positive = scale out; negative = safe to shrink)",
+            registry=self.registry)
         # the fires counter sees every fire in the process, wherever the
         # site lives: failpoints stays dependency-free, we observe
         failpoints.add_observer(
@@ -192,6 +252,11 @@ class RuntimeMetrics:
                 self.rung_seconds.labels(key[5:-2]).observe(num)
             else:
                 self.pipeline_gauges.labels(key).set(num)
+
+    def observe_breaker(self, state: str) -> None:
+        """Record a breaker transition (worker/breaker.py calls this)."""
+        self.breaker_transitions.labels(state).inc()
+        self.breaker_state.set(_BREAKER_STATE_VALUES.get(state, -1))
 
     def render_text(self) -> str:
         return generate_latest(self.registry).decode()

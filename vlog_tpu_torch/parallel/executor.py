@@ -459,14 +459,32 @@ class PipelineExecutor:
             self._cond.notify_all()
 
 
+# CUDA device index -> its compute stream (guarded by _COMPUTE_LOCK)
+_COMPUTE_STREAMS: dict = {}
+_COMPUTE_LOCK = threading.Lock()
+
+
 def dispatch_stream(device: torch.device):
-    """The context a run's dispatch thread queues its device work in: a
-    compute stream of its own on CUDA (the resize kernel and every torch
-    op launch on the current stream, so work left on the legacy default
-    stream would serialize against the copy stream), nothing on CPU."""
+    """The context a run's dispatch thread queues its device work in: the
+    device's compute stream on CUDA (the resize kernel and every torch op
+    launch on the current stream, so work left on the legacy default
+    stream would serialize against the copy stream), nothing on CPU.
+
+    One compute stream per device for the process, reused by every run:
+    torch keeps a cuBLAS workspace for each (handle, stream) pair it has
+    seen until the process ends, so a stream per run would leave one
+    more workspace allocated on the card after each run of a long-lived
+    worker. Runs on one device at once (the
+    scheduler leases one card to one job) would share it and serialize."""
     if device.type != "cuda":
         return contextlib.nullcontext()
-    return torch.cuda.stream(torch.cuda.Stream(device))
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    with _COMPUTE_LOCK:
+        stream = _COMPUTE_STREAMS.get(index)
+        if stream is None:
+            stream = _COMPUTE_STREAMS[index] = torch.cuda.Stream(index)
+    return torch.cuda.stream(stream)
 
 
 def upload(array: np.ndarray, device: torch.device) -> torch.Tensor:

@@ -4,6 +4,28 @@
 ==================  =====================================================
 site                where it fires
 ==================  =====================================================
+``claims.claim``    inside the claim transaction, after the row pick and
+                    before the claim write (jobs/claims.py)
+``claims.complete`` inside the completion transaction, before the
+                    terminal write
+``claims.fail``     inside the failure transaction, before any retry
+                    accounting (a failure to record a failure)
+``db.commit``       just before a transaction COMMIT (db/core.py) — the
+                    armed transaction rolls back
+``daemon.compute``  in WorkerDaemon._run_attempt, before the kind handler
+``db.claim``        jobs.claims.claim_jobs entry — the claim query fails
+                    with a synthetic connection error (the
+                    coordination-plane brownout path)
+``events.publish``  jobs.events.wake, before the bus publish — the armed
+                    hit drops the wakeup hint (claimants degrade to
+                    poll latency, no job lost)
+``preempt.notice``  preemption watcher poll (worker/drain.py) — an
+                    armed hit IS the eviction notice: the worker
+                    begins a grace-budgeted drain
+``drain.deadline``  DrainState.expired — forces the drain grace
+                    deadline to fire now
+``qos.flood``       qos.admit_enqueue entry (jobs/qos.py) — an armed
+                    hit bypasses per-tenant admission control
 ``backend.encode``  at TorchBackend.run entry (worker compute thread)
 ``storage.verify``  at storage.integrity.verify_tree entry — forces a
                     manifest-verification rejection
@@ -47,6 +69,24 @@ ENV_VAR = "VLOG_FAILPOINTS"
 SEED_VAR = "VLOG_FAILPOINTS_SEED"
 
 SITES: dict[str, str] = {
+    "claims.claim": "claim transaction, after row pick, before write",
+    "claims.complete": "completion transaction, before the terminal write",
+    "claims.fail": "failure transaction, before retry accounting",
+    "db.commit": "just before a transaction COMMIT (rolls back)",
+    "daemon.compute": "WorkerDaemon._run_attempt, before the kind handler",
+    "db.claim": "claim_jobs entry; the claim query fails with a synthetic "
+                "connection error",
+    "events.publish": "jobs.events.wake, before the bus publish; an armed "
+                      "hit drops the wakeup hint (parked claimants degrade "
+                      "to re-check/poll latency)",
+    "preempt.notice": "preemption watcher poll (worker/drain.py); an armed "
+                      "hit IS the eviction notice — the worker begins "
+                      "draining",
+    "drain.deadline": "DrainState.expired; forces the drain grace deadline "
+                      "to fire now",
+    "qos.flood": "qos.admit_enqueue entry; an armed hit BYPASSES "
+                 "per-tenant admission so a chaos flood lands on the "
+                 "queue and the claim-side starvation bound must hold",
     "backend.encode": "TorchBackend.run entry (worker compute thread)",
     "storage.verify": "storage.integrity.verify_tree entry",
     "device.fault": "compute thread, start of the backend ladder run; "
@@ -111,6 +151,10 @@ def reset() -> None:
     with _lock:
         _active.clear()
         _rng.seed(int(os.environ.get(SEED_VAR, "0") or 0))
+
+
+def is_armed(site: str) -> bool:
+    return site in _active
 
 
 def arm_from_spec(spec: str) -> list[str]:
