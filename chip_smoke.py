@@ -24,10 +24,10 @@ Phases (any failure exits non-zero; none is caught):
    it; the card's clocks, temperature and power before and after;
 4. the integer stages (intra, P, deblock) on CPU and on CUDA from the
    same uint8 frames: levels, MVs and reconstructions must be identical;
-5. the slice: the first 8 frames of a seeded synthetic 1920x1080 Y4M
+5. the slice: the first 6 frames of a seeded synthetic 1920x1080 Y4M
    through ``TorchBackend(device="cuda").plan/run`` with the defaults
    (default ladder, thumbnail, resume, the executor at depth 2: one
-   24-frame chain cut to 8 frames, one dispatch); ``stage_s`` must hold
+   24-frame chain cut to 6 frames, one dispatch); ``stage_s`` must hold
    the reference's stage keys and the executor's gauges
    (``max_in_flight`` >= 1); the CMAF tree must parse with the port's
    own readers, the kernel's launch counter must rise by 3 scaled rungs
@@ -99,7 +99,7 @@ Phases (any failure exits non-zero; none is caught):
    a 30 s chunk ((2, 1408, 2048) x (2048, 1024) float32, TF32 off),
    device ms against its bound; no resize launch;
 10c. runtime (the device runtime): HEVC on the 24-frame source at
-   depths 1, 2 and 3 (``VLOG_PIPELINE_DEPTH``) with the 4-rung ladder at
+   depths 1 and 2 (``VLOG_PIPELINE_DEPTH``) with the 4-rung ladder at
    constant QP in four 6-frame dispatches: byte-identical trees (the
    journal and ``outputs.json`` aside), 36 launches each, wall and
    ``stage_s`` per depth; H.264 on the resume phase's 360p rung at
@@ -130,15 +130,15 @@ Phases (any failure exits non-zero; none is caught):
    the tree; its sprite and transcription jobs (the tiny random-weight
    Whisper) on the card; a 35 s WAV transcribed (2 windows); an HEVC
    re-encode of the 24-frame source; with 6-frame dispatches, an HEVC
-   re-encode whose dispatch thread starts ``handle_command("profile")``
-   at its first ladder resize (1 s: the Chrome trace names
-   ``streaming_resize_kernel``), and one whose first attempt a 2 s
-   timeout cancels at the first batch boundary (no ``vlog-pipe*`` or
-   ``vlog-decode*`` thread left, the rise of
-   ``torch.cuda.memory_allocated()`` under DAEMON_MEM_RISE_MAX) before
-   its retry completes; every job completed at progress 100 with its
-   spans in ``job_spans`` (the transcode's ``stage.*`` keys the
-   reference's), launches per job (12, 3, 12, 39, 39; 0 for the
+   re-encode whose first attempt a 2 s timeout cancels at the first
+   batch boundary (no ``vlog-pipe*`` or ``vlog-decode*`` thread left,
+   the rise of ``torch.cuda.memory_allocated()`` under
+   DAEMON_MEM_RISE_MAX) and whose retry's dispatch thread starts
+   ``handle_command("profile")`` at its first ladder resize (1 s: the
+   Chrome trace names ``streaming_resize_kernel``) and completes; every
+   job completed at progress 100 with its spans in ``job_spans`` (the
+   transcode's ``stage.*`` keys the reference's), launches per job (12,
+   3, 12, and 12 + 39 for the cancelled attempt and its retry; 0 for the
    transcriptions), ``ping``, ``stats`` (the mesh snapshot) and
    ``get_metrics`` (CUDA initialized, bytes in use); each job's
    enqueue-to-complete and span seconds printed; then, where ``aiohttp``
@@ -146,6 +146,28 @@ Phases (any failure exits non-zero; none is caught):
    subprocess for one HEVC re-encode, its health routes, SIGTERM: the
    drain and exit code 0 (without ``aiohttp`` it prints that the CLI is
    tested on the CPU only);
+10e. remote: the port's Worker API (``build_worker_app`` on an
+   ephemeral 127.0.0.1 port over a sqlite file in the work directory)
+   and ``RemoteWorker(device="cuda")`` in this process, registered
+   through ``WorkerAPIClient.register``: worker 1 runs until the queue
+   is empty: the pipeline phase's A/V MP4 transcoded with the defaults
+   (4 rungs, 3 audio renditions; the first attempt hit by
+   ``device.fault``, refunded by the server), the sprite and
+   transcription jobs the server's ``complete`` enqueues after verifying
+   the uploaded tree, an HEVC re-encode of the 24-frame source (the
+   opt-in kind enabled); then with one rung (360p) in 6-frame
+   dispatches: worker 2 preempted through ``preempt.notice`` after
+   dispatch 1 of a 12-frame transcode (0 s grace: the checkpoint flush,
+   a ``preempted`` failure); worker 3 resumes it from the server's
+   partial tree (``resumed_segments`` > 0, the tree equal to an
+   uninterrupted run's file for file), and runs a 24-frame transcode
+   whose lease is swept and reclaimed after dispatch 1: the next
+   progress post gets 409, the run stops at the next batch boundary,
+   no executor thread is left, the allocated bytes rise at most
+   REMOTE_MEM_RISE_MAX; printed: each job's enqueue-to-ready, claim
+   latencies, files and bytes uploaded, the transcode's upload overlap
+   with its compute, progress posts, allocated bytes at each attempt's
+   start, launches per job, the 409-to-stop seconds;
 11. asr: Whisper at whisper-small width (seeded random weights, a
    synthetic vocabulary at whisper-small's special-token ids, written as
    a checkpoint directory) on a seeded 100 s WAV of voiced-like bursts
@@ -206,7 +228,7 @@ THUMB_MAX_BLOCK_SHARE = 1e-3
 
 SRC_H, SRC_W = 1080, 1920
 FRAMES = 24             # one full 24-frame I+P chain: one dispatch
-SLICE_FRAMES = 8        # the slice: one I+P chain cut to 8 frames
+SLICE_FRAMES = 6        # the slice: one I+P chain cut to 6 frames
 INTRA_FRAMES = 8        # one intra dispatch (frame_batch 8)
 MP4_FRAMES = 4          # samples of the I+P MP4 (1 IDR + 3 P: a cut chain)
 SEEK_FRAME = 1          # read mid-GOP on a fresh source
@@ -221,13 +243,14 @@ CLOCKS_QUERY = ("--query-gpu=clocks.sm,clocks.mem,clocks.max.sm,"
                 "temperature.gpu,power.draw")
 RUNG_SHAPES = ((720, 1280), (480, 854), (360, 640))
 # Frames per kernel call on the driven paths: a 24-frame chain (hevc,
-# the scheduler's HEVC job, the daemon's re-encode), the slice's chain
-# cut to 8 frames and an intra dispatch, a 6-frame chain (resume, ts,
-# runtime, the daemon's 6-frame dispatches), the MP4's cut 4-frame chain
-# (pipeline, the daemon's transcode), the thumbnail's one frame (the
-# 720p rung's shapes). The kernel phase holds the kernel to its plain
-# version at each; every backend phase checks that its plan calls with
-# one.
+# the scheduler's HEVC job, the daemon's and the remote phase's
+# re-encodes), an intra dispatch of 8 frames, a 6-frame chain (the
+# slice's cut chain, resume, ts, runtime, the daemon's and the remote
+# phase's 6-frame dispatches), the MP4's cut 4-frame chain (pipeline,
+# the daemon's and the remote phase's transcodes), the thumbnail's one
+# frame (the 720p rung's shapes). The kernel phase holds the kernel to
+# its plain version at each; every backend phase checks that its plan
+# calls with one.
 COMPARE_N = tuple(dict.fromkeys((FRAMES, SLICE_FRAMES, INTRA_FRAMES,
                                  SHORT_BATCH, MP4_FRAMES, 1)))
 # Sprite tiles (the default 160x90) of the 1080p sources, at the frames
@@ -1955,7 +1978,7 @@ def phase_asr(work: Path) -> dict:
 # ---------------------------------------------------------------------------
 # The device runtime: the executor at several depths, its failpoint drain,
 # the mesh scheduler on the card, the profiler, the compile meter
-RUNTIME_HEVC_DEPTHS = (1, 2, 3)
+RUNTIME_HEVC_DEPTHS = (1, 2)
 RUNTIME_H264_DEPTHS = (1, 2)
 RUNTIME_TREE_SKIP = ("rc_journal.jsonl", "outputs.json")   # run state
 PROFILE_SESSION_S = 1.0
@@ -2443,11 +2466,11 @@ def phase_daemon(work: Path, ip_path: Path, sources: dict) -> int:
     (its first attempt hit by ``device.fault``: refunded, the card
     quarantined and reinstated by the probe loop), its sprite and
     transcription jobs, a 35 s WAV transcribed, an HEVC re-encode of the
-    24-frame source; then with 6-frame dispatches an HEVC re-encode with
-    a 1 s profile session from its first resize, and one whose first
-    attempt a timeout cancels
-    between dispatches (no executor thread left, the allocated bytes held
-    to a bound) before its retry completes; the command verbs; the CLI."""
+    24-frame source; then with 6-frame dispatches an HEVC re-encode whose
+    first attempt a timeout cancels between dispatches (no executor
+    thread left, the allocated bytes held to a bound) and whose retry
+    completes under a 1 s profile session started at its first resize;
+    the command verbs; the CLI."""
     import asyncio
     import os
     import threading
@@ -2587,12 +2610,14 @@ def phase_daemon(work: Path, ip_path: Path, sources: dict) -> int:
         daemon._dispatch, daemon._make_progress_cb = spy_dispatch, hooked_cb
 
         def profiled_process_video(source, out_dir, **kw):
-            if Path(out_dir).name == "profiled":
-                notes["profile_armed"] = True
+            # the cancelled job's retry (its second run) is profiled
+            if Path(out_dir).name == "cancelled":
+                notes["cancelled_runs"] = notes.get("cancelled_runs", 0) + 1
+                notes["profile_armed"] = notes["cancelled_runs"] == 2
             return process_video(source, out_dir, **kw)
 
         def profiled_resize(*args):
-            # the profiled job's first ladder resize, on its dispatch
+            # the retry's first ladder resize, on its dispatch
             # thread: the 1 s session is running when these kernels run
             if notes.get("profile_armed") and "profile" not in notes:
                 fut = asyncio.run_coroutine_threadsafe(daemon.handle_command(
@@ -2647,9 +2672,6 @@ def phase_daemon(work: Path, ip_path: Path, sources: dict) -> int:
             # 6-frame dispatches (four per re-encode of 24 frames)
             config.SEGMENT_DURATION_S = SHORT_SEG_S
             config.TPU_FRAME_BATCH = SHORT_BATCH
-            vid["profiled"] = await enqueue("Profiled", sources[FRAMES],
-                                            JobKind.REENCODE, HEVC_PAYLOAD)
-            await wait_idle()
             timeouts.append(DAEMON_TIMEOUT_S)
             vid["cancelled"] = await enqueue("Cancelled", sources[FRAMES],
                                              JobKind.REENCODE, HEVC_PAYLOAD,
@@ -2709,7 +2731,7 @@ def phase_daemon(work: Path, ip_path: Path, sources: dict) -> int:
     # every job completed, progress 100
     bad = [(j["id"], j["kind"], j["error"]) for j in rows["jobs"]
            if j["completed_at"] is None or j["progress"] != 100.0]
-    if bad or len(rows["jobs"]) != 7:
+    if bad or len(rows["jobs"]) != 6:
         fail(f"daemon: {len(rows['jobs'])} jobs, not completed: {bad}")
     up = by_video[ids["upload"]]
     if set(up) != {"transcode", "sprite", "transcription"}:
@@ -2752,7 +2774,7 @@ def phase_daemon(work: Path, ip_path: Path, sources: dict) -> int:
                               if v["id"] == ids["speech"]) / "captions.vtt"
     _check_vtt(vtt, vtt.read_text().count("-->"))
     # the HEVC re-encodes
-    for key in ("hevc", "profiled", "cancelled"):
+    for key in ("hevc", "cancelled"):
         v = next(x for x in rows["videos"] if x["id"] == ids[key])
         inits = sorted((d / "videos" / v["slug"]).glob("*p/init.mp4"))
         if v["codec"] != "h265" or len(inits) != 4 \
@@ -2792,7 +2814,7 @@ def phase_daemon(work: Path, ip_path: Path, sources: dict) -> int:
     metrics = verbs["get_metrics"]["device"]
     if not verbs["ping"].get("pong") \
             or (verbs["stats"]["mesh"] or {}).get("slots") != 1 \
-            or verbs["stats"]["completed"] != 7 \
+            or verbs["stats"]["completed"] != 6 \
             or metrics.get("initialized") is not True \
             or metrics.get("platform") != "cuda" \
             or not isinstance(metrics.get("bytes_in_use"), int):
@@ -2810,7 +2832,6 @@ def phase_daemon(work: Path, ip_path: Path, sources: dict) -> int:
     want = {("video.ready", ids["upload"]): scaled + thumb,
             ("video.sprites_ready", ids["upload"]): 3,
             ("video.reencoded", ids["hevc"]): scaled + thumb,
-            ("video.reencoded", ids["profiled"]): 4 * scaled + thumb,
             ("video.reencoded", ids["cancelled"]): 4 * scaled + thumb,
             ("job.failed", ids["upload"]): 0}
     got = {(e, v): n for e, v, n in per_job if (e, v) in want}
@@ -2834,6 +2855,442 @@ def phase_daemon(work: Path, ip_path: Path, sources: dict) -> int:
         "asr_windows": asr_attrs.get("asr.windows_total"),
         "verbs": {"stats_mesh": verbs["stats"]["mesh"],
                   "device": metrics}, **cli}))
+    return launches
+
+
+# The remote phase: the port's Worker API on an ephemeral port over a
+# sqlite file in the work dir, and RemoteWorker(device="cuda") over HTTP.
+# The preempted, resumed, uninterrupted and claim-lost jobs run on the
+# 1080p sources with one rung (360p: 3 launches a dispatch, as the
+# resume phase) in 6-frame dispatches; the main path runs the defaults.
+REMOTE_QUEUE_TIMEOUT_S = 600.0
+REMOTE_MEM_RISE_MAX = DAEMON_MEM_RISE_MAX     # PR 9's bound, 64 MiB
+
+
+def _executor_threads() -> list[str]:
+    import threading
+
+    return [t.name for t in threading.enumerate()
+            if t.name.startswith(("vlog-pipe", "vlog-decode"))]
+
+
+def phase_remote(work: Path, ip_path: Path, sources: dict) -> int:
+    """The port's Worker API (``build_worker_app`` on ``aiohttp.web``,
+    127.0.0.1, an ephemeral port, a sqlite file) and ``RemoteWorker
+    (device="cuda")`` over HTTP in this process, registered through
+    ``WorkerAPIClient.register``. Worker 1 runs until the queue is
+    empty: the pipeline phase's A/V MP4 transcoded with the defaults
+    (4 rungs, 3 audio renditions; its first attempt hit by
+    ``device.fault`` and refunded by the server), the sprite and
+    transcription jobs the server's ``complete`` enqueues, an HEVC
+    re-encode (an opt-in kind) of the 24-frame source. Then with one
+    360p rung in 6-frame dispatches: worker 2 is preempted through
+    ``preempt.notice`` after its first dispatch of a 12-frame transcode
+    (0 s drain grace: the flush, a ``preempted`` failure); worker 3
+    resumes it from the server's partial tree (``resumed_segments`` >
+    0; the tree equals an uninterrupted run's, file for file), runs the
+    uninterrupted one, and a 24-frame transcode whose lease is swept and
+    reclaimed after dispatch 1: the next progress post gets 409 and the
+    run stops at the next batch boundary (no executor thread left, the
+    allocated bytes held to REMOTE_MEM_RISE_MAX)."""
+    import asyncio
+
+    from aiohttp import web
+
+    from vlog_tpu_torch import config
+    from vlog_tpu_torch.api.worker_api import build_worker_app
+    from vlog_tpu_torch.asr.engine import reset_engine
+    from vlog_tpu_torch.asr.model import WhisperConfig
+    from vlog_tpu_torch.asr.synthetic import write_checkpoint
+    from vlog_tpu_torch.backends import get_backend
+    from vlog_tpu_torch.db import Database, create_all
+    from vlog_tpu_torch.enums import JobKind
+    from vlog_tpu_torch.jobs import claims, videos as vids
+    from vlog_tpu_torch.media.probe import get_video_info
+    from vlog_tpu_torch.ops import fused_resize
+    from vlog_tpu_torch.storage import integrity
+    from vlog_tpu_torch.utils import failpoints
+    from vlog_tpu_torch.worker.remote import (ClaimLost, RemoteWorker,
+                                              WorkerAPIClient)
+    from vlog_tpu_torch.worker.watchdog import JobCancelled
+
+    d = work / "remote"
+    d.mkdir()
+    ckpt = work / "whisper-tiny"
+    if not ckpt.exists():
+        write_checkpoint(ckpt, WhisperConfig(**TINY_WHISPER), seed=ASR_SEED)
+    backend = get_backend("torch")
+    if backend.device.type != "cuda":
+        fail(f"remote: backend on {backend.device}")
+    one_rung = (config.LADDER_BY_NAME["360p"],)
+    a_info = get_video_info(ip_path)
+    _frames_per_call(backend.plan(a_info, out_dir=d / "p"),
+                     "remote transcode", MP4_FRAMES)
+    b_info = get_video_info(sources[FRAMES])
+    _frames_per_call(backend.plan(b_info, out_dir=d / "p", codec="h265"),
+                     "remote re-encode", FRAMES)
+    for n in (RESUME_FRAMES, FRAMES):
+        _frames_per_call(backend.plan(get_video_info(sources[n]), one_rung,
+                                      out_dir=d / "p",
+                                      segment_duration_s=SHORT_SEG_S,
+                                      frame_batch=SHORT_BATCH),
+                         "remote 360p transcodes", n)
+    saved = {k: getattr(config, k) for k in (
+        "RETRY_BACKOFF_BASE_S", "PREEMPTION_POLL_S", "SEGMENT_DURATION_S",
+        "TPU_FRAME_BATCH", "ladder_for_source")}
+    config.RETRY_BACKOFF_BASE_S = 0.0
+    config.PREEMPTION_POLL_S = 0.05
+
+    stats: dict = {"claims": [], "uploads": [], "progress_posts": 0,
+                   "compute_end": {}, "allocated_at_start": {},
+                   "launches": {}, "stops": {}, "hook_errors": []}
+    hooks: dict = {}               # video id -> fn(call index, worker)
+
+    def instrument(worker: RemoteWorker) -> RemoteWorker:
+        """Count what crosses the wire and when the compute ends; hook
+        the progress callback of the videos in ``hooks``."""
+        client = worker.client
+        claim, upload, progress = (client.claim, client.upload_file,
+                                   client.progress)
+        run_with_timeout, dispatch = (worker._run_with_timeout,
+                                      worker._dispatch)
+        make_cb = worker._make_progress_cb
+        current: dict = {}
+
+        async def spy_claim(*a, **kw):
+            t0 = time.perf_counter()
+            got = await claim(*a, **kw)
+            if got is not None:
+                stats["claims"].append(round(time.perf_counter() - t0, 4))
+            return got
+
+        async def spy_upload(video_id, rel, path):
+            t0 = time.perf_counter()
+            digest = await upload(video_id, rel, path)
+            stats["uploads"].append((current.get("job"), rel,
+                                     Path(path).stat().st_size, t0,
+                                     time.perf_counter()))
+            return digest
+
+        async def spy_progress(job_id, **kw):
+            stats["progress_posts"] += 1
+            try:
+                return await progress(job_id, **kw)
+            except ClaimLost:
+                stats.setdefault("t_409", time.perf_counter())
+                raise
+
+        async def spy_run_with_timeout(fn, timeout, what):
+            try:
+                return await run_with_timeout(fn, timeout, what)
+            finally:
+                stats["compute_end"][current.get("job")] = \
+                    time.perf_counter()
+
+        async def spy_dispatch(job, video):
+            current["job"], current["video"] = job["id"], video["id"]
+            before = fused_resize.launches
+            try:
+                return await dispatch(job, video)
+            finally:
+                stats["launches"].setdefault(job["id"], []).append(
+                    fused_resize.launches - before)
+
+        def hooked_cb(job_id, rung_names):
+            cb = make_cb(job_id, rung_names)
+            stats["allocated_at_start"].setdefault(job_id, []).append(
+                torch.cuda.memory_allocated())
+            video_id = current.get("video")
+            hook = hooks.pop(video_id, None)
+            if hook is None:
+                return cb
+            calls = [0]
+
+            def wrapped(done, total, msg):
+                calls[0] += 1
+                try:
+                    hook(calls[0], done)
+                except Exception as exc:  # noqa: BLE001 — checked below
+                    stats["hook_errors"].append(repr(exc))
+                try:
+                    return cb(done, total, msg)
+                except JobCancelled:
+                    stats["stops"][video_id] = (time.perf_counter(), done)
+                    raise
+            return wrapped
+
+        client.claim, client.upload_file, client.progress = (
+            spy_claim, spy_upload, spy_progress)
+        worker._run_with_timeout = spy_run_with_timeout
+        worker._dispatch = spy_dispatch
+        worker._make_progress_cb = hooked_cb
+        return worker
+
+    async def drive():
+        db = Database(f"sqlite:///{d / 'vlog.db'}")
+        await db.connect()
+        await create_all(db)
+        runner = web.AppRunner(build_worker_app(db, video_dir=d / "videos"))
+        await runner.setup()
+        site = web.TCPSite(runner, "127.0.0.1", 0)
+        await site.start()
+        base = "http://127.0.0.1:%d" % runner.addresses[0][1]
+        loop = asyncio.get_running_loop()
+        workers: list[RemoteWorker] = []
+
+        def make_worker(n: int, **kw) -> RemoteWorker:
+            w = RemoteWorker(WorkerAPIClient(base, key), name="smoke-rw",
+                             work_dir=d / f"work{n}", device="cuda",
+                             backend=backend, poll_interval_s=0.1,
+                             heartbeat_interval_s=5.0,
+                             progress_min_interval_s=0.0,
+                             transcription_model_dir=str(ckpt), **kw)
+            workers.append(w)
+            return instrument(w)
+
+        async def enqueue(title, src, kind=JobKind.TRANSCODE, payload=None):
+            video = await vids.create_video(db, title, source_path=str(src))
+            job = await claims.enqueue_job(db, video["id"], kind,
+                                           payload=payload)
+            return video, job
+
+        async def run_until(worker, done):
+            task = asyncio.create_task(worker.run())
+            deadline = time.monotonic() + REMOTE_QUEUE_TIMEOUT_S
+            try:
+                while not await done():
+                    if task.done():
+                        task.result()
+                        fail("remote: a worker's run() ended early")
+                    if time.monotonic() > deadline:
+                        fail("remote: the queue did not drain in time")
+                    await asyncio.sleep(0.1)
+            finally:
+                worker.request_stop()
+                await asyncio.wait_for(task, 120)
+                await worker.client.aclose()
+
+        def completed(n: int):
+            """Every job terminal (or the thief's), ``n`` of them
+            completed: a transcode's follow-on jobs are enqueued just
+            after its completion commits, so the count closes that
+            window."""
+            async def done():
+                rows = await db.fetch_all("SELECT * FROM jobs")
+                return sum(1 for r in rows if r["completed_at"]) == n \
+                    and all(r["completed_at"] or r["failed_at"]
+                            or r["claimed_by"] == "smoke-thief"
+                            for r in rows)
+            return done
+
+        try:
+            t_key = time.perf_counter()
+            key = await WorkerAPIClient.register(base, "smoke-rw")
+            stats["register_s"] = round(time.perf_counter() - t_key, 3)
+            # 1. the main path, with the device fault on its first attempt
+            vid = {}
+            vid["upload"], _ = await enqueue("Upload", ip_path)
+            vid["hevc"], _ = await enqueue("HEVC", sources[FRAMES],
+                                           JobKind.REENCODE, HEVC_PAYLOAD)
+            failpoints.arm("device.fault", count=1)
+            w1 = make_worker(1, kinds=tuple(JobKind))
+            t0 = time.perf_counter()
+            # the transcode, its sprite and transcription jobs, the HEVC
+            await run_until(w1, completed(4))
+            stats["main_s"] = round(time.perf_counter() - t0, 2)
+            failpoints.reset()
+            # 2. preempted after dispatch 1 (one rung, 6-frame dispatches)
+            config.SEGMENT_DURATION_S = SHORT_SEG_S
+            config.TPU_FRAME_BATCH = SHORT_BATCH
+            config.ladder_for_source = lambda height: one_rung
+            vid["cut"], cut_job = await enqueue("Cut",
+                                                sources[RESUME_FRAMES])
+            w2 = make_worker(2, kinds=(JobKind.TRANSCODE,),
+                             drain_grace_s=0.0)
+
+            def preempt_hook(call, done):
+                if call == 1:
+                    stats["preempted_at"] = done
+                    failpoints.arm("preempt.notice", count=1)
+                    deadline = time.monotonic() + 60
+                    while not w2._cancel.is_set() \
+                            and time.monotonic() < deadline:
+                        time.sleep(0.01)
+            hooks[vid["cut"]["id"]] = preempt_hook
+            failpoints.arm("preempt.notice", count=0)  # watcher on, quiet
+            t0 = time.perf_counter()
+            w2_task = asyncio.create_task(w2.run())
+            await asyncio.wait_for(w2_task, REMOTE_QUEUE_TIMEOUT_S)
+            await w2.client.aclose()
+            stats["preempted_s"] = round(time.perf_counter() - t0, 2)
+            failpoints.reset()
+            partial = sorted(str(p.relative_to(d / "videos"))
+                             for p in (d / "videos").rglob("*")
+                             if p.is_file())
+            # 3. the resume, the uninterrupted run, the claim lost
+            vid["whole"], _ = await enqueue("Whole", sources[RESUME_FRAMES])
+            vid["lost"], lost_job = await enqueue("Lost", sources[FRAMES])
+            w3 = make_worker(3, kinds=(JobKind.TRANSCODE, JobKind.SPRITE))
+
+            async def steal(job_id):
+                await db.execute(
+                    "UPDATE jobs SET claim_expires_at=1 WHERE id=:i",
+                    {"i": job_id})
+                await claims.sweep_expired_claims(db)
+                got = await claims.claim_job(db, "smoke-thief")
+                if got is None or got["id"] != job_id:
+                    fail(f"remote: the thief claimed {got and got['id']}")
+
+            def lost_hook(call, done):
+                if call == 1:
+                    asyncio.run_coroutine_threadsafe(
+                        steal(lost_job), loop).result(60)
+                    stats["lost_started"] = torch.cuda.memory_allocated()
+                elif call == 2:
+                    deadline = time.monotonic() + 60
+                    while "t_409" not in stats \
+                            and time.monotonic() < deadline:
+                        time.sleep(0.01)
+            hooks[vid["lost"]["id"]] = lost_hook
+            poll_once = w3.poll_once
+
+            async def spy_poll_once():
+                worked = await poll_once()
+                if vid["lost"]["id"] in stats["stops"] \
+                        and "lost_end" not in stats:
+                    stats["lost_end"] = {
+                        "t": time.perf_counter(),
+                        "threads": _executor_threads(),
+                        "allocated": torch.cuda.memory_allocated()}
+                return worked
+            w3.poll_once = spy_poll_once
+            t0 = time.perf_counter()
+            # + the resumed and the uninterrupted transcodes and their
+            # sprite jobs; the claim-lost job stays with the thief
+            await run_until(w3, completed(8))
+            stats["resume_s"] = round(time.perf_counter() - t0, 2)
+            rows = {t: await db.fetch_all(f"SELECT * FROM {t} ORDER BY id")
+                    for t in ("jobs", "videos", "video_qualities",
+                              "job_failures", "job_spans", "workers")}
+            return vid, rows, partial, cut_job, lost_job
+        finally:
+            failpoints.reset()
+            for w in workers:
+                await w.client.aclose()
+            await runner.cleanup()
+            await db.disconnect()
+
+    t0 = time.perf_counter()
+    launches0 = fused_resize.launches
+    try:
+        vid, rows, partial, cut_job, lost_job = asyncio.run(drive())
+    finally:
+        for k, v in saved.items():
+            setattr(config, k, v)
+        reset_engine()
+    wall = time.perf_counter() - t0
+    launches = fused_resize.launches - launches0
+    if stats["hook_errors"]:
+        fail(f"remote: hooks failed {stats['hook_errors']}")
+    ids = {k: v["id"] for k, v in vid.items()}
+    by_video: dict = {}
+    for j in rows["jobs"]:
+        by_video.setdefault(j["video_id"], {})[j["kind"]] = j
+    for j in rows["jobs"]:
+        done_s = (round(j["completed_at"] - j["created_at"], 3)
+                  if j["completed_at"] else None)
+        log(f"remote job {j['id']} {j['kind']} (video {j['video_id']}): "
+            f"enqueue to ready {done_s}s, attempts {j['attempt']}, "
+            f"claimed by {j['claimed_by']}, launches "
+            f"{stats['launches'].get(j['id'])}")
+    # 1. the main path over HTTP: ready, verified, follow-on jobs done
+    up = by_video[ids["upload"]]
+    video = next(v for v in rows["videos"] if v["id"] == ids["upload"])
+    quals = [q for q in rows["video_qualities"] if q["video_id"] == video["id"]]
+    out = d / "videos" / video["slug"]
+    files = integrity.load_manifest(out)
+    if set(up) != {"transcode", "sprite", "transcription"} \
+            or any(j["completed_at"] is None for j in up.values()) \
+            or video["status"] != "ready" or len(quals) != 4 or not files \
+            or integrity.verify_tree(out, files) \
+            or "captions.vtt" not in files \
+            or len(list(out.glob("audio_*k"))) != 3 \
+            or not (out / "sprites" / "sprite_01.jpg").exists():
+        fail(f"remote: upload jobs {sorted(up)}, status {video['status']}, "
+             f"{len(quals)} qualities, outputs.json {sorted(files or {})}")
+    # 5. the device fault: refunded, retried to completion
+    fails = sorted((f["job_id"], f["failure_class"])
+                   for f in rows["job_failures"])
+    # (the sweep that hands the claim-lost job to the thief records the
+    # lapsed lease as worker_crash, as the reference's sweep does)
+    if fails != sorted([(up["transcode"]["id"], "device_fault"),
+                        (cut_job, "preempted"),
+                        (lost_job, "worker_crash")]) \
+            or up["transcode"]["attempt"] != 1:
+        fail(f"remote: job_failures {fails}, transcode attempts "
+             f"{up['transcode']['attempt']}")
+    # 2. the HEVC re-encode
+    hv = next(v for v in rows["videos"] if v["id"] == ids["hevc"])
+    inits = sorted((d / "videos" / hv["slug"]).glob("*p/init.mp4"))
+    if hv["codec"] != "h265" or len(inits) != 4 \
+            or not all(b"hvcC" in p.read_bytes() for p in inits):
+        fail(f"remote: re-encode codec {hv['codec']}, {len(inits)} rungs")
+    # 3. the preempted job: resumed from the server's partial tree into
+    # the uninterrupted tree
+    cut_row = by_video[ids["cut"]]["transcode"]
+    resumed = [json.loads(s["attributes"]).get("resumed_segments")
+               for s in rows["job_spans"]
+               if s["job_id"] == cut_job and s["name"] == "worker.transcode"]
+    trees = {k: _tree_files(d / "videos" / next(
+        v["slug"] for v in rows["videos"] if v["id"] == ids[k]))
+        for k in ("cut", "whole")}
+    differ = _tree_diff(trees["cut"], trees["whole"])
+    if cut_row["completed_at"] is None or cut_row["attempt"] != 1 \
+            or not any(n and n > 0 for n in resumed) or differ \
+            or not trees["cut"]:
+        fail(f"remote: preempted job: attempt {cut_row['attempt']}, "
+             f"resumed_segments {resumed}, files differing {differ}")
+    # 4. the claim lost: stopped at a batch boundary, nothing left behind
+    lost_row = by_video[ids["lost"]]["transcode"]
+    end = stats.get("lost_end") or {}
+    t_stop, stop_done = stats["stops"].get(ids["lost"], (None, None))
+    rise = end.get("allocated", 0) - stats.get("lost_started", 0)
+    if "t_409" not in stats or t_stop is None \
+            or lost_row["claimed_by"] != "smoke-thief" \
+            or stop_done != 2 * SHORT_BATCH or end.get("threads") != [] \
+            or rise > REMOTE_MEM_RISE_MAX:
+        fail(f"remote: claim lost: 409 {'t_409' in stats}, stop at "
+             f"{stop_done} frames, owner {lost_row['claimed_by']}, "
+             f"threads {end.get('threads')}, rise {rise}")
+    # what crossed the wire and when
+    sent = stats["uploads"]
+    ct = stats["compute_end"].get(up["transcode"]["id"])
+    early = [(n, t1 - t0) for job, _, n, t0, t1 in sent
+             if job == up["transcode"]["id"] and ct and t1 <= ct]
+    log("remote: " + json.dumps({
+        "wall_s": round(wall, 2), "main_s": stats["main_s"],
+        "preempted_s": stats["preempted_s"], "resume_s": stats["resume_s"],
+        "register_s": stats["register_s"],
+        "claim_latency_s": stats["claims"],
+        "uploaded": {"files": len(sent), "bytes": sum(n for _, _, n, _, _
+                                                      in sent)},
+        "transcode_overlap": {"bytes": sum(n for n, _ in early),
+                              "seconds": round(sum(s for _, s in early), 3),
+                              "files": len(early)},
+        "progress_posts": stats["progress_posts"],
+        "allocated_at_attempt_start": {
+            str(k): v for k, v in stats["allocated_at_start"].items()},
+        "launches_by_job": {str(k): v for k, v in stats["launches"].items()},
+        "launches": launches,
+        "preempt": {"at_frames": stats["preempted_at"],
+                    "partial_files": len(partial),
+                    "resumed_segments": resumed,
+                    "tree_files": len(trees["cut"])},
+        "claim_lost": {"s_409_to_stop": round(t_stop - stats["t_409"], 3),
+                       "stopped_at_frames": stop_done,
+                       "threads_left": len(end["threads"]),
+                       "allocated_rise": rise,
+                       "bound": REMOTE_MEM_RISE_MAX}}))
     return launches
 
 
@@ -2888,6 +3345,7 @@ def main() -> int:
     launches["runtime"] = timed("runtime", phase_runtime, sources, work,
                                 compile_cold)
     launches["daemon"] = timed("daemon", phase_daemon, work, ip_path, sources)
+    launches["remote"] = timed("remote", phase_remote, work, ip_path, sources)
     timed("asr", phase_asr, work)       # fails on any resize launch
     launches["asr"] = 0
     shutil.rmtree(work, ignore_errors=True)

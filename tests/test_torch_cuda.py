@@ -5,7 +5,8 @@ CPU, the HEVC chain program and deblocking filter on CUDA against the
 CPU, the sprite worker, Whisper, the AAC encoder and ``process_video``
 on the card, and the device runtime: the executor's event/stream copies
 against ``.cpu()``, a pull that does not wait for a later batch's
-kernels, and the scheduler's CUDA probe.
+kernels, and the scheduler's CUDA probe; the worker daemon and the
+remote worker (over the port's Worker API) on the card.
 
 Marked ``cuda``; each test skips (in its fixture) without a CUDA
 device. On a machine with a card and without JAX, run them alone:
@@ -642,6 +643,71 @@ def test_daemon_poll_once_on_the_card(cuda, tmp_path):
     assert launches == 3
     assert caps["backend"] == "torch" and caps["device_kind"] == "gpu"
     assert caps["devices"] == [torch.cuda.get_device_name(0)]
+
+
+def test_remote_worker_round_trip_on_the_card(cuda, tmp_path):
+    """The port's remote worker on its default device against the port's
+    Worker API in this process: claimed over HTTP, transcoded on the card
+    (one scaled rung through the kernel), streamed up, verified and
+    finalized by the server."""
+    import asyncio
+
+    from aiohttp.test_utils import TestServer
+
+    import chip_smoke
+    from vlog_tpu_torch import config
+    from vlog_tpu_torch.api.worker_api import build_worker_app
+    from vlog_tpu_torch.backends.torch_backend import TorchBackend
+    from vlog_tpu_torch.db import Database, create_all
+    from vlog_tpu_torch.enums import JobKind
+    from vlog_tpu_torch.jobs import claims, videos as vids
+    from vlog_tpu_torch.media.y4m import write_y4m
+    from vlog_tpu_torch.storage import integrity
+    from vlog_tpu_torch.worker.remote import RemoteWorker, WorkerAPIClient
+
+    y, u, v = chip_smoke._smooth_frames(8, 96, 128, seed=2)
+    src = tmp_path / "src.y4m"
+    write_y4m(src, list(zip(y, u, v)), fps_num=8, fps_den=1)
+    rungs = (config.QualityRung("96p", 96, 0, 128_000, base_qp=28),
+             config.QualityRung("64p", 64, 150_000, 96_000, base_qp=30))
+
+    async def go():
+        db = Database(f"sqlite:///{tmp_path / 'q.db'}")
+        await db.connect()
+        await create_all(db)
+        server = TestServer(build_worker_app(db, video_dir=tmp_path / "srv"))
+        await server.start_server()
+        base = str(server.make_url("")).rstrip("/")
+        video = await vids.create_video(db, "Card", source_path=str(src))
+        job_id = await claims.enqueue_job(db, video["id"])
+        key = await WorkerAPIClient.register(base, "card-rw")
+        worker = RemoteWorker(WorkerAPIClient(base, key), name="card-rw",
+                              work_dir=tmp_path / "work",
+                              backend=TorchBackend(), claim_wait_s=0.0,
+                              kinds=(JobKind.TRANSCODE,))
+        assert worker.device == "cuda"
+        before = fused_resize.launches
+        saved = config.ladder_for_source
+        config.ladder_for_source = lambda h: rungs
+        try:
+            assert await worker.poll_once() is True
+        finally:
+            config.ladder_for_source = saved
+            await worker.client.aclose()
+            await server.close()
+        launches = fused_resize.launches - before
+        row = await vids.get_video(db, video["id"])
+        job = await db.fetch_one("SELECT * FROM jobs WHERE id=:i",
+                                 {"i": job_id})
+        await db.disconnect()
+        return launches, row, job, tmp_path / "srv" / video["slug"]
+
+    launches, row, job, tree = asyncio.run(go())
+    assert job["completed_at"] is not None and job["progress"] == 100.0
+    assert row["status"] == "ready"
+    assert launches == 3
+    manifest = integrity.load_manifest(tree)
+    assert manifest and integrity.verify_tree(tree, manifest) == []
 
 
 def test_mgmt_device_info_before_and_after_cuda_init(cuda):

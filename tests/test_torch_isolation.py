@@ -1,9 +1,12 @@
 """The PyTorch port stands alone: no module of ``vlog_tpu_torch`` and not
-``chip_smoke.py`` imports ``jax`` or anything of ``vlog_tpu``.
+``chip_smoke.py`` imports ``jax`` or anything of ``vlog_tpu``, nor
+``httpx`` (the port's one HTTP library is ``aiohttp``).
 
 Checked twice: by importing every port module (and chip_smoke) in a
-subprocess whose ``sys.meta_path`` refuses jax/jaxlib/vlog_tpu, and by
-reading every import statement in their sources.
+subprocess whose ``sys.meta_path`` refuses jax/jaxlib/vlog_tpu/httpx,
+and by reading every import statement in their sources. The walk covers
+the HTTP plane's modules (the Worker API server, auth, the remote
+worker, the SLO plane, the GC).
 """
 
 from __future__ import annotations
@@ -16,7 +19,10 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "vlog_tpu_torch"
-BLOCKED = ("jax", "jaxlib", "vlog_tpu")
+BLOCKED = ("jax", "jaxlib", "vlog_tpu", "httpx")
+HTTP_PLANE = ("vlog_tpu_torch.api.worker_api", "vlog_tpu_torch.api.auth",
+              "vlog_tpu_torch.api.errors", "vlog_tpu_torch.worker.remote",
+              "vlog_tpu_torch.obs.slo", "vlog_tpu_torch.storage.gc")
 
 _BLOCKED_IMPORT_SCRIPT = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys
@@ -41,6 +47,7 @@ _BLOCKED_IMPORT_SCRIPT = textwrap.dedent("""
     leaked = [m for m in sys.modules
               if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
     assert not leaked, leaked
+    assert not set({http_plane!r}) - set(names), names
     print(len(names))
 """)
 
@@ -56,7 +63,8 @@ def _roots(tree: ast.AST) -> set[str]:
 
 
 def test_port_imports_with_jax_and_vlog_tpu_blocked():
-    script = _BLOCKED_IMPORT_SCRIPT.format(blocked=BLOCKED, root=str(ROOT))
+    script = _BLOCKED_IMPORT_SCRIPT.format(blocked=BLOCKED, root=str(ROOT),
+                                           http_plane=HTTP_PLANE)
     proc = subprocess.run([sys.executable, "-c", script], cwd=str(ROOT),
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]

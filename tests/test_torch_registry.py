@@ -202,6 +202,9 @@ def test_new_sites_are_registered():
     # the worker daemon's job plane registers its sites too
     assert {"claims.claim", "db.commit", "daemon.compute", "db.claim",
             "drain.deadline"} <= set(failpoints.SITES)
-    # the remote worker is not ported: its sites stay unknown
+    # the remote worker and the Worker API register theirs
+    assert {"remote.upload", "remote.claim", "upload.corrupt", "claim.fence",
+            "checkpoint.upload", "storage.gc"} <= set(failpoints.SITES)
+    # the delivery plane is not ported: its sites stay unknown
     with pytest.raises(ValueError, match="unknown failpoint site"):
-        failpoints.arm_from_spec("remote.upload=1")
+        failpoints.arm_from_spec("delivery.read=1")

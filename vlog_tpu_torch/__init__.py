@@ -1,6 +1,8 @@
 """PyTorch/CUDA port of the vlog_tpu compute: the per-video pipeline
 (``worker.process_video``: the H.264 ladder, the AAC renditions,
-verification, the manifest), sprites and captions.
+verification, the manifest), sprites and captions, and the workers that
+run them: the sqlite daemon and the remote worker with the Worker API
+it talks to.
 
 The package stands beside ``vlog_tpu`` and imports nothing from it: the
 JAX package is the reference, and every function here is tested against

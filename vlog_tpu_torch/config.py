@@ -101,6 +101,8 @@ QUALITY_LADDER: tuple[QualityRung, ...] = (
     QualityRung("360p", 360, 600_000, 96_000, base_qp=33),
 )
 
+LADDER_BY_NAME: dict[str, QualityRung] = {r.name: r for r in QUALITY_LADDER}
+
 
 def ladder_for_source(source_height: int) -> tuple[QualityRung, ...]:
     """Rungs at or below the source height (never upscale), >= 1 rung."""
@@ -253,6 +255,40 @@ STALL_WINDOW_S: float = _env_float("VLOG_STALL_WINDOW", 900.0, lo=0.0)
 DB_BREAKER_THRESHOLD: int = _env_int("VLOG_DB_BREAKER_THRESHOLD", 3, lo=1)
 DB_BREAKER_COOLDOWN_S: float = _env_float("VLOG_DB_BREAKER_COOLDOWN", 15.0,
                                           lo=0.0)
+
+# The Worker API (api/worker_api.py) and its remote workers
+# (worker/remote.py): the server's port, the URL a worker dials, the
+# registration secret (empty = dev mode, loopback only), the long-poll
+# claim (server-side park bound, parked-waiter cap, re-check cadence),
+# the heartbeat write-behind window (0 = write through) and the TTL of
+# the /metrics database gauge block.
+WORKER_API_PORT: int = _env_int("VLOG_WORKER_API_PORT", 9002, lo=1, hi=65535)
+WORKER_API_URL: str = _env_str("VLOG_WORKER_API_URL",
+                               f"http://127.0.0.1:{WORKER_API_PORT}")
+ADMIN_SECRET: str = _env_str("VLOG_ADMIN_SECRET", "")
+CLAIM_WAIT_MAX_S: float = _env_float("VLOG_CLAIM_WAIT_MAX_S", 30.0, lo=0.0)
+CLAIM_MAX_WAITERS: int = _env_int("VLOG_CLAIM_MAX_WAITERS", 256, lo=1)
+CLAIM_RECHECK_S: float = _env_float("VLOG_CLAIM_RECHECK_S", 2.0, lo=0.1)
+HEARTBEAT_FLUSH_S: float = _env_float("VLOG_HEARTBEAT_FLUSH_S", 0.0, lo=0.0)
+METRICS_DB_TTL_S: float = _env_float("VLOG_METRICS_DB_TTL_S", 5.0, lo=0.0)
+
+# SLO plane (obs/slo.py): burn-rate windows, the alert threshold, the
+# exemplar ring, the evaluation cadence of an embedding process.
+SLO_FAST_WINDOW_S: float = _env_float("VLOG_SLO_FAST_WINDOW_S", 300.0,
+                                      lo=10.0)
+SLO_SLOW_WINDOW_S: float = _env_float("VLOG_SLO_SLOW_WINDOW_S", 3600.0,
+                                      lo=60.0)
+SLO_EVAL_S: float = _env_float("VLOG_SLO_EVAL_S", 30.0, lo=0.0)
+SLO_EXEMPLARS: int = _env_int("VLOG_SLO_EXEMPLARS", 16, lo=1, hi=256)
+SLO_BURN_ALERT: float = _env_float("VLOG_SLO_BURN_ALERT", 1.0, lo=0.1)
+
+# Orphan GC (storage/gc.py): the age past which a temp or a worker
+# workspace is reclaimable, and how long a soft-deleted video's tree
+# survives.
+GC_TEMP_MAX_AGE_S: float = _env_float("VLOG_GC_TEMP_MAX_AGE", 6 * 3600.0,
+                                      lo=0.0)
+GC_DELETED_RETENTION_S: float = _env_float("VLOG_GC_DELETED_RETENTION",
+                                           7 * 86400.0, lo=0.0)
 
 # Span persistence to job_spans (metrics stay on either way).
 TRACE_ENABLED: bool = _env_bool("VLOG_TRACE_ENABLED", True)

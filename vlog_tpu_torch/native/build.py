@@ -14,6 +14,10 @@ directory (``parallel/compile_cache.py``: the package's ignored
 ``_build/`` unless ``VLOG_COMPILE_CACHE_DIR`` is set) at first use. A
 failed build raises: there is no Python fallback coder in the port.
 
+The worker-key hash (``argon2.c``: Argon2id, RFC 9106, over BLAKE2b)
+is a third library, built the same way by ``get_argon2_lib`` for
+``api/auth.py``; it is the port's own code, not a copy.
+
 The libav ingest shim (``avshim.c``, a copy of the JAX package's) is a
 second, optional library: it links the system libavformat, libavcodec,
 libavutil and libswscale, and ``get_av_lib`` returns None where they are
@@ -196,3 +200,39 @@ def get_av_lib() -> ctypes.CDLL | None:
         lib.vt_av_audio_to_f32.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
         _AV_LIB = lib
         return _AV_LIB
+
+
+_ARGON2_LIB: ctypes.CDLL | None = None
+
+
+def _compile_argon2() -> Path:
+    build = Path(ensure_compile_cache())
+    src = _DIR / "argon2.c"
+    so = build / "libvt_argon2.so"
+    if so.exists() and so.stat().st_mtime >= src.stat().st_mtime:
+        return so
+    tmp = build / f"libvt_argon2.{os.getpid()}.so.tmp"
+    cc = os.environ.get("CC", "gcc")
+    _run_compiler([cc, "-O2", "-fPIC", "-shared", str(src), "-o", str(tmp)],
+                  "argon2 build", 1000)
+    os.replace(tmp, so)
+    return so
+
+
+def get_argon2_lib() -> ctypes.CDLL:
+    """The loaded Argon2id library (built on first call). Raises on
+    failure: the port has no other hash for worker keys."""
+    global _ARGON2_LIB
+    with _LOCK:
+        if _ARGON2_LIB is not None:
+            return _ARGON2_LIB
+        lib = ctypes.CDLL(str(_compile_argon2()))
+        u8, u32 = ctypes.c_char_p, ctypes.c_uint32
+        lib.vt_argon2id.restype = ctypes.c_int
+        lib.vt_argon2id.argtypes = [
+            u8, u32, u8, u32, u8, u32, u8, u32,      # pwd, salt, secret, ad
+            u32, u32, u32,                           # t, m (KiB), lanes
+            ctypes.c_void_p, u32,                    # out, outlen
+        ]
+        _ARGON2_LIB = lib
+        return _ARGON2_LIB

@@ -11,9 +11,16 @@ compute and coordination breakers, retry backoff, drain, span writes,
 alert outcomes, the per-tenant claim wait and the fleet scale hint. The
 family names, help texts and labels are the reference's, so one
 dashboard reads both packages. The worker's health server renders this
-registry at ``/metrics``. The HTTP-plane registry (``Metrics``, which
-renders database gauges for the API servers) is not ported (ROADMAP
-Queue A item 13b).
+registry at ``/metrics``. Since the Worker API is ported it also holds
+the families that server and the worker's own planes feed: the fleet
+stage and rung histograms ingested from worker span reports, the SLO
+plane's gauges (``obs/slo.py``) and the orphan GC's counters
+(``storage/gc.py``).
+
+:class:`Metrics` is the HTTP-plane registry, one per server app: request
+and job counters of the Worker API, and at render time the database
+gauge block (jobs by derived state, queue depth, workers online, the
+per-tenant queue) followed by :func:`runtime`'s families.
 
 ``prometheus_client`` is optional: without it every metric object is a
 no-op and renders are empty — metrics are observability, the runtime
@@ -23,6 +30,8 @@ works unchanged.
 from __future__ import annotations
 
 import threading
+import time
+from typing import Any
 
 try:
     from prometheus_client import (CollectorRegistry, Counter, Gauge,
@@ -56,6 +65,7 @@ except ImportError:  # pragma: no cover — exercised only in minimal envs
     def generate_latest(_registry) -> bytes:       # type: ignore[no-redef]
         return b""
 
+from vlog_tpu_torch import config
 from vlog_tpu_torch.obs.trace import STAGE_KEYS
 from vlog_tpu_torch.utils import failpoints
 
@@ -232,6 +242,46 @@ class RuntimeMetrics:
             "Suggested worker-count delta from the fleet snapshot "
             "(positive = scale out; negative = safe to shrink)",
             registry=self.registry)
+        self.fleet_stage_seconds = Histogram(
+            "vlog_fleet_stage_duration_seconds",
+            "Per-stage busy seconds ingested from worker span reports",
+            ["stage"], buckets=STAGE_BUCKETS, registry=self.registry)
+        self.fleet_rung_seconds = Histogram(
+            "vlog_fleet_rung_duration_seconds",
+            "Per-rung consume busy seconds ingested from worker span reports",
+            ["rung"], buckets=STAGE_BUCKETS, registry=self.registry)
+        self.gc_runs = Counter(
+            "vlog_gc_runs_total", "Orphan-GC sweeps run",
+            registry=self.registry)
+        self.gc_files_removed = Counter(
+            "vlog_gc_files_removed_total", "Entries reclaimed by GC sweeps",
+            registry=self.registry)
+        self.gc_bytes_reclaimed = Counter(
+            "vlog_gc_bytes_reclaimed_total", "Bytes reclaimed by GC sweeps",
+            registry=self.registry)
+        self.gc_errors = Counter(
+            "vlog_gc_errors_total", "Errors hit during GC sweeps",
+            registry=self.registry)
+        self.slo_error_ratio = Gauge(
+            "vlog_slo_error_ratio",
+            "Fraction of an objective's events outside its threshold "
+            "over each burn window (0 = budget untouched)",
+            ["objective", "window"], registry=self.registry)
+        self.slo_burn_rate = Gauge(
+            "vlog_slo_burn_rate",
+            "Error ratio over the objective's error budget per window "
+            "(1.0 = burning budget exactly at the sustainable rate)",
+            ["objective", "window"], registry=self.registry)
+        self.slo_alert = Gauge(
+            "vlog_slo_alert",
+            "1 while an objective burns past VLOG_SLO_BURN_ALERT on "
+            "BOTH windows (the multi-window page condition)",
+            ["objective"], registry=self.registry)
+        self.slo_exemplars = Counter(
+            "vlog_slo_exemplars_total",
+            "Slow-outlier exemplars captured by the SLO plane "
+            "(each carries a trace_id resolvable via the job trace API)",
+            ["objective"], registry=self.registry)
         # the fires counter sees every fire in the process, wherever the
         # site lives: failpoints stays dependency-free, we observe
         failpoints.add_observer(
@@ -274,3 +324,116 @@ def runtime() -> RuntimeMetrics:
             if _runtime is None:
                 _runtime = RuntimeMetrics()
     return _runtime
+
+
+class Metrics:
+    """HTTP-plane Prometheus registry (one per app, test-safe)."""
+
+    def __init__(self) -> None:
+        self.registry = CollectorRegistry()
+        self.http_requests = Counter(
+            "vlog_http_requests_total", "HTTP requests",
+            ["method", "route", "status"], registry=self.registry)
+        self.jobs_claimed = Counter(
+            "vlog_jobs_claimed_total", "Jobs claimed over HTTP",
+            ["kind"], registry=self.registry)
+        self.jobs_completed = Counter(
+            "vlog_jobs_completed_total", "Jobs completed over HTTP",
+            ["kind"], registry=self.registry)
+        self.jobs_failed = Counter(
+            "vlog_jobs_failed_total", "Job failures reported over HTTP",
+            ["kind"], registry=self.registry)
+        self.bytes_uploaded = Counter(
+            "vlog_upload_bytes_total", "Output bytes uploaded by workers",
+            registry=self.registry)
+        self.upload_digest_mismatch = Counter(
+            "vlog_upload_digest_mismatch_total",
+            "Uploads rejected for an X-Content-SHA256 mismatch (422)",
+            registry=self.registry)
+        self.upload_disk_rejected = Counter(
+            "vlog_upload_disk_rejected_total",
+            "Uploads rejected under disk pressure (507)",
+            registry=self.registry)
+        self.manifest_rejects = Counter(
+            "vlog_manifest_verify_failures_total",
+            "Completions rejected by outputs.json tree verification (422)",
+            registry=self.registry)
+        # DB-derived gauge block cache (VLOG_METRICS_DB_TTL_S): the
+        # GROUP-BYs below are O(states)/O(tenants), but a 1 s scrape
+        # interval across several scrapers still multiplies them — the
+        # app registry and runtime registry stay live every scrape,
+        # only the SQL block is reused inside the TTL.
+        self._db_block: str | None = None
+        self._db_block_expires = 0.0
+
+    async def render(self, db: Any) -> str:
+        """One scrape: app registry + DB gauges + the runtime registry.
+
+        The job-state gauges aggregate in SQL (GROUP BY over the
+        derived-state CASE) so scrape cost is O(states), not O(jobs) —
+        and the whole DB block is additionally cached for
+        ``VLOG_METRICS_DB_TTL_S`` so tight scrape intervals cannot
+        become DB load.
+        """
+        text = generate_latest(self.registry).decode()
+        now_mono = time.monotonic()
+        if self._db_block is None or now_mono >= self._db_block_expires:
+            self._db_block = await self._render_db_block(db)
+            self._db_block_expires = now_mono + config.METRICS_DB_TTL_S
+        return text + self._db_block + runtime().render_text()
+
+    async def _render_db_block(self, db: Any) -> str:
+        """The SQL-derived gauge families of one scrape (cacheable)."""
+        # lazy: jobs/claims imports this module, so a module-level
+        # jobs.state import would be circular when obs loads first
+        from vlog_tpu_torch.db.core import now as db_now
+        from vlog_tpu_torch.jobs import state as js
+
+        t = db_now()
+        state_rows = await db.fetch_all(
+            f"SELECT {js.sql_state_case()} AS state, COUNT(*) AS n "
+            "FROM jobs GROUP BY state", {"now": t})
+        counts = {r["state"]: int(r["n"] or 0) for r in state_rows}
+        lines = ["# HELP vlog_jobs Jobs by derived state",
+                 "# TYPE vlog_jobs gauge"]
+        for st, n in sorted(counts.items()):
+            lines.append(f'vlog_jobs{{state="{st}"}} {n}')
+        # flat queue-depth gauge: what the worker HPA scales on
+        # (deploy/k8s/worker-autoscaling.yaml) — claimable work only;
+        # jobs waiting out retry backoff are deliberately excluded (they
+        # cannot be claimed yet, so they must not trigger scale-up)
+        queued = (counts.get("unclaimed", 0) + counts.get("retrying", 0)
+                  + counts.get("expired", 0))
+        lines.append("# HELP vlog_jobs_queued Jobs waiting for a worker")
+        lines.append("# TYPE vlog_jobs_queued gauge")
+        lines.append(f"vlog_jobs_queued {queued}")
+        online = await db.fetch_val(
+            "SELECT COUNT(*) FROM workers WHERE last_heartbeat_at > :cut",
+            {"cut": t - config.WORKER_OFFLINE_THRESHOLD_S})
+        lines.append("# HELP vlog_workers_online Workers with a fresh heartbeat")
+        lines.append("# TYPE vlog_workers_online gauge")
+        lines.append(f"vlog_workers_online {online or 0}")
+        # per-tenant queue pressure: one GROUP BY over tenant (the QoS
+        # plane's admission + fair-share inputs, made scrapeable)
+        tenant_rows = await db.fetch_all(
+            f"""
+            SELECT tenant,
+                   SUM(CASE WHEN {js.SQL_CLAIMABLE} THEN 1 ELSE 0 END)
+                       AS queued,
+                   SUM(CASE WHEN {js.SQL_ACTIVELY_CLAIMED} THEN 1 ELSE 0 END)
+                       AS inflight
+            FROM jobs WHERE {js.SQL_NOT_TERMINAL}
+            GROUP BY tenant ORDER BY tenant
+            """, {"now": t})
+        lines.append("# HELP vlog_tenant_queued Claimable jobs by tenant")
+        lines.append("# TYPE vlog_tenant_queued gauge")
+        for r in tenant_rows:
+            lines.append(f'vlog_tenant_queued{{tenant="{r["tenant"]}"}} '
+                         f'{int(r["queued"] or 0)}')
+        lines.append("# HELP vlog_tenant_inflight Actively claimed jobs "
+                     "by tenant")
+        lines.append("# TYPE vlog_tenant_inflight gauge")
+        for r in tenant_rows:
+            lines.append(f'vlog_tenant_inflight{{tenant="{r["tenant"]}"}} '
+                         f'{int(r["inflight"] or 0)}')
+        return "\n".join(lines) + "\n"

@@ -1,6 +1,7 @@
 """Storage integrity: streaming digests, the ``outputs.json`` tree
-manifest (build / load / verify) and disk admission (port of
-``vlog_tpu/storage``; the orphan GC is not ported)."""
+manifest (build / load / verify), disk admission, and the orphan GC
+(``storage/gc.py``: stale temps, deleted and orphan trees, abandoned
+worker workspaces) (port of ``vlog_tpu/storage``)."""
 
 from vlog_tpu_torch.storage.integrity import (  # noqa: F401
     MANIFEST_NAME,

@@ -89,6 +89,16 @@ SITES: dict[str, str] = {
                  "queue and the claim-side starvation bound must hold",
     "backend.encode": "TorchBackend.run entry (worker compute thread)",
     "storage.verify": "storage.integrity.verify_tree entry",
+    "storage.gc": "storage.gc.run_gc entry",
+    "remote.upload": "WorkerAPIClient.upload_file, before each attempt",
+    "remote.claim": "WorkerAPIClient.claim",
+    "upload.corrupt": "upload body stream: first chunk bit-flipped while "
+                      "the digest header stays true",
+    "claim.fence": "WorkerAPIClient epoch header; the armed write sends "
+                   "a stale X-Claim-Epoch",
+    "checkpoint.upload": "remote uploader's incremental checkpoint post and "
+                         "the drain-time flush; the armed checkpoint write "
+                         "fails",
     "device.fault": "compute thread, start of the backend ladder run; "
                     "re-raised as a synthetic CUDA-shaped device error",
     "asr.submit": "JobHandle.submit, before a window enters the cross-job "

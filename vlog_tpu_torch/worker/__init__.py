@@ -1,4 +1,5 @@
 """Worker runtime: the per-video pipeline, audio renditions, sprites and
-transcription (port of ``vlog_tpu/worker``)."""
+transcription, and the two workers that run them, the sqlite daemon and
+the remote worker over the Worker API (port of ``vlog_tpu/worker``)."""
 
 from vlog_tpu_torch.worker.pipeline import ProcessResult, process_video  # noqa: F401

@@ -30,7 +30,8 @@ holds every access to them).
 :class:`PreemptionWatcher` polls the two notice channels preemptible
 platforms actually provide: a file path (``VLOG_PREEMPTION_FILE``,
 touched by a node-level agent) and a metadata URL
-(``VLOG_PREEMPTION_URL``, HTTP 200 = evicting). The ``preempt.notice``
+(``VLOG_PREEMPTION_URL``, HTTP 200 = evicting; polled with ``aiohttp``,
+the port's one HTTP client library). The ``preempt.notice``
 failpoint makes the next poll an eviction notice, so chaos runs drive
 the whole drain → checkpoint → hand-off loop deterministically.
 """
@@ -130,7 +131,7 @@ class PreemptionWatcher:
 
     async def aclose(self) -> None:
         if self._client is not None:
-            await self._client.aclose()
+            await self._client.close()
             self._client = None
 
     @classmethod
@@ -153,20 +154,24 @@ class PreemptionWatcher:
         if self.file is not None and self.file.exists():
             return f"preemption notice file present ({self.file})"
         if self.url:
+            import asyncio
+
+            import aiohttp
+
             try:
                 if self._client is None:
-                    # one client for the watcher's lifetime — a fresh
+                    # one session for the watcher's lifetime — a fresh
                     # pool + TLS context every 2 s poll adds up over a
                     # worker's whole life
-                    import httpx
-
-                    self._client = httpx.AsyncClient(timeout=2.0)
-                r = await self._client.get(self.url)
-                if r.status_code == 200:
-                    return f"preemption notice URL answered 200 ({self.url})"
-            except Exception:  # noqa: BLE001 — an unreachable metadata
-                # endpoint is the steady state on most hosts; never let
-                # it kill the watcher
+                    self._client = aiohttp.ClientSession(
+                        timeout=aiohttp.ClientTimeout(total=2.0))
+                async with self._client.get(self.url) as r:
+                    if r.status == 200:
+                        return ("preemption notice URL answered 200 "
+                                f"({self.url})")
+            except (aiohttp.ClientError, OSError, asyncio.TimeoutError):
+                # an unreachable metadata endpoint is the steady state
+                # on most hosts; never let it kill the watcher
                 log.debug("preemption URL poll failed", exc_info=True)
         return None
 
