@@ -168,6 +168,24 @@ Phases (any failure exits non-zero; none is caught):
    latencies, files and bytes uploaded, the transcode's upload overlap
    with its compute, progress posts, allocated bytes at each attempt's
    start, launches per job, the 409-to-stop seconds;
+10f. serve: whether the system libpq loads (printed; the Postgres
+   facade needs it); on the port's ``FakePg`` over a ``postgresql://``
+   URL where it does, else on a sqlite file, the port's public app on
+   loopback and ``WorkerDaemon(device="cuda")`` polling every 30 s in
+   this process: one 360p transcode of the 6-frame 1080p source (one
+   dispatch, 6 launches) claimed within 5 s of its enqueue (the wakeup
+   bus: ``PgNotifyBus`` on Postgres), ``finalize_ready`` prewarming the
+   app's delivery plane (the init and the segment); then over HTTP that
+   tree and the remote phase's 1080p A/V tree (its sqlite file): every
+   file of ``outputs.json`` equal to the file and its SHA-256, a
+   segment's cold miss and its hit (0 DB queries, 0 disk reads),
+   ``Range`` 206, ``If-None-Match`` 304, ``HEAD``, 403 on the daemon
+   tree's source with downloads off, 404 on a tree that is not ready; a second plane
+   filled from the disk L2 (``l2_bytes`` given to the constructor); a
+   peer fill each way between two loopback origins on a ring of two;
+   printed: the claim latency, the prewarm counts, miss and hit
+   milliseconds per segment, the phase's wall seconds with the card's
+   name and power limit;
 11. asr: Whisper at whisper-small width (seeded random weights, a
    synthetic vocabulary at whisper-small's special-token ids, written as
    a checkpoint directory) on a seeded 100 s WAV of voiced-like bursts
@@ -3294,6 +3312,329 @@ def phase_remote(work: Path, ip_path: Path, sources: dict) -> int:
     return launches
 
 
+SERVE_POLL_S = 30.0          # the daemon's poll: only a wakeup claims sooner
+SERVE_CLAIM_MAX_S = 5.0      # a claim slower than this was not woken
+SERVE_QUEUE_TIMEOUT_S = 300.0
+SERVE_L2_BYTES = 64 << 20
+SERVE_LAUNCHES = 6           # one 360p dispatch: 3 planes + 3 thumbnail
+
+
+def _libpq() -> str | None:
+    """The system libpq that the Postgres facade loads, or None."""
+    import ctypes
+    import ctypes.util
+
+    name = ctypes.util.find_library("pq") or "libpq.so.5"
+    try:
+        ctypes.CDLL(name)
+    except OSError:
+        return None
+    return name
+
+
+def phase_serve(work: Path, sources: dict) -> int:
+    """The serving plane in one process. Where the system libpq exists,
+    the port's ``FakePg`` on loopback and ``create_all`` over a
+    ``postgresql://`` URL; else (printed) a sqlite file. On that
+    database the port's public app on loopback and ``WorkerDaemon
+    (device="cuda")`` polling every SERVE_POLL_S: one 360p transcode of
+    the 6-frame 1080p source (one dispatch, SERVE_LAUNCHES launches)
+    claimed within SERVE_CLAIM_MAX_S of its enqueue (the wakeup bus,
+    ``PgNotifyBus`` on Postgres), its ``finalize_ready`` prewarming the
+    app's plane. Then over HTTP, that tree and the remote phase's 1080p
+    A/V tree (its own sqlite file): every file of ``outputs.json`` equal
+    to the file (bytes and SHA-256), a segment's miss and hit (the hit
+    with zero DB queries and zero disk reads), ``Range`` 206,
+    ``If-None-Match`` 304, ``HEAD``, 403 on the source with downloads
+    off (the daemon's tree; a remote worker uploads no source), 404 on a
+    tree that is not ready; a second plane filled from the
+    disk L2 (``l2_bytes`` given to the constructor); one peer fill each
+    way between two loopback origins on a ring of two."""
+    import asyncio
+    import hashlib
+
+    import aiohttp
+    from aiohttp import web
+
+    from vlog_tpu_torch import config
+    from vlog_tpu_torch.api.public_api import DELIVERY, build_public_app
+    from vlog_tpu_torch.backends import get_backend
+    from vlog_tpu_torch.db import Database, create_all
+    from vlog_tpu_torch.db.core import open_database
+    from vlog_tpu_torch.delivery import DeliveryPlane, Ring
+    from vlog_tpu_torch.enums import JobKind
+    from vlog_tpu_torch.jobs import claims, videos as vids
+    from vlog_tpu_torch.jobs.events import bus_for
+    from vlog_tpu_torch.media.probe import get_video_info
+    from vlog_tpu_torch.obs.metrics import runtime
+    from vlog_tpu_torch.ops import fused_resize
+    from vlog_tpu_torch.parallel.scheduler import get_scheduler
+    from vlog_tpu_torch.storage import integrity
+    from vlog_tpu_torch.worker.daemon import WorkerDaemon
+
+    d = work / "serve"
+    d.mkdir()
+    remote = work / "remote"
+    lib = _libpq()
+    log("postgres: unavailable (libpq.so.5 not found)" if lib is None else
+        f"postgres: {lib}; the job runs on the port's FakePg")
+    backend = get_backend("torch")
+    if backend.device.type != "cuda":
+        fail(f"serve: backend on {backend.device}")
+    one_rung = (config.LADDER_BY_NAME["360p"],)
+    src = sources[SLICE_FRAMES]
+    _frames_per_call(backend.plan(get_video_info(src), one_rung,
+                                  out_dir=d / "p"),
+                     "serve transcode", SLICE_FRAMES)
+    saved = {k: getattr(config, k) for k in (
+        "ladder_for_source", "DOWNLOADS_ENABLED", "DELIVERY_PEERS",
+        "DELIVERY_SELF_URL", "DELIVERY_GOSSIP_INTERVAL_S")}
+    config.ladder_for_source = lambda height: one_rung
+    config.DELIVERY_GOSSIP_INTERVAL_S = 0.0
+    out: dict = {}
+
+    async def drive():
+        fake, runners, dbs = None, [], []
+        session = aiohttp.ClientSession()
+
+        async def serve(app, port: int = 0) -> str:
+            runner = web.AppRunner(app)
+            await runner.setup()
+            runners.append(runner)
+            await web.TCPSite(runner, "127.0.0.1", port).start()
+            return "http://127.0.0.1:%d" % runner.addresses[0][1]
+
+        async def fetch(url, method="GET", **kw):
+            t0 = time.perf_counter()
+            async with session.request(method, url, **kw) as r:
+                body = await r.read()
+                return (r.status, body, r.headers,
+                        round((time.perf_counter() - t0) * 1e3, 3))
+
+        async def drain(plane):
+            for _ in range(50):
+                if not plane._tasks:
+                    return
+                await asyncio.gather(*list(plane._tasks),
+                                     return_exceptions=True)
+
+        try:
+            # 1. the job, on Postgres where libpq exists
+            if lib is not None:
+                from vlog_tpu_torch.db.pgfake import FakePg
+
+                fake = FakePg().start()
+                host, port = fake.server_address
+                url = (f"postgresql://smoke@{host}:{port}/smoke"
+                       "?sslmode=disable&gssencmode=disable")
+            else:
+                url = f"sqlite:///{d / 'vlog.db'}"
+            db = open_database(url)
+            await db.connect()
+            dbs.append(db)
+            await create_all(db)
+            app = build_public_app(db, video_dir=d / "videos")
+            base = await serve(app)
+            plane = app[DELIVERY]
+            daemon = WorkerDaemon(
+                db, name="smoke-serve", device="cuda", backend=backend,
+                scheduler=get_scheduler(), video_dir=d / "videos",
+                kinds=(JobKind.TRANSCODE,), poll_interval_s=SERVE_POLL_S,
+                heartbeat_interval_s=5.0, progress_min_interval_s=0.0)
+            task = asyncio.create_task(daemon.run())
+            deadline = time.monotonic() + 60
+            while await db.fetch_one("SELECT 1 FROM workers WHERE "
+                                     "name='smoke-serve'") is None:
+                if task.done() or time.monotonic() > deadline:
+                    task.result()
+                    fail("serve: the daemon did not start")
+                await asyncio.sleep(0.05)
+            await asyncio.sleep(0.5)        # past its first, empty poll
+            video = await vids.create_video(db, "Serve",
+                                            source_path=str(src))
+            launches0 = fused_resize.launches
+            warmed0 = runtime().delivery_prewarm.labels("warmed")._value.get()
+            job_id = await claims.enqueue_job(db, video["id"])
+            deadline = time.monotonic() + SERVE_QUEUE_TIMEOUT_S
+            while True:
+                row = await db.fetch_one("SELECT * FROM jobs WHERE id=:i",
+                                         {"i": job_id})
+                if row["completed_at"] or row["failed_at"]:
+                    break
+                if task.done() or time.monotonic() > deadline:
+                    task.result()
+                    fail("serve: the transcode did not finish in time")
+                await asyncio.sleep(0.05)
+            out["launches"] = fused_resize.launches - launches0
+            await drain(plane)
+            daemon.request_stop()
+            await asyncio.wait_for(task, 120)
+            bus = bus_for(db)
+            out["bus"] = type(bus).__name__
+            await bus.close()
+            if row["failed_at"]:
+                fail(f"serve: the transcode failed: {row['error']}")
+            out["dialect"] = getattr(db, "dialect", "sqlite")
+            out["claim_latency_s"] = round(row["started_at"]
+                                           - row["created_at"], 4)
+            out["job_s"] = round(row["completed_at"] - row["created_at"], 3)
+            out["prewarm"] = {
+                "warmed_total": runtime().delivery_prewarm.labels(
+                    "warmed")._value.get() - warmed0,
+                **{k: plane.counters[k] for k in (
+                    "invalidations", "prewarm_runs", "prewarm_segments",
+                    "prewarm_errors")}}
+            video = await vids.get_video(db, video["id"])
+            # 2. serve both trees over HTTP
+            rdb = Database(f"sqlite:///{remote / 'vlog.db'}")
+            await rdb.connect()
+            dbs.append(rdb)
+            rapp = build_public_app(rdb, video_dir=remote / "videos")
+            rbase = await serve(rapp)
+            rplane = rapp[DELIVERY]
+            upload = await rdb.fetch_one(
+                "SELECT * FROM videos WHERE title='Upload'")
+            trees = {"serve": (base, video["slug"], d / "videos", db,
+                               plane),
+                     "remote": (rbase, upload["slug"], remote / "videos",
+                                rdb, rplane)}
+            hits = {}
+            for name, (b, slug, vdir, tdb, tplane) in trees.items():
+                files = integrity.load_manifest(vdir / slug)
+                rel = sorted(r for r in files if r.endswith(".m4s"))[0]
+                if name == "serve" and tplane.cache.get((slug, rel)) is None:
+                    fail(f"serve: {rel} was not prewarmed")
+                tplane.invalidate_slug(slug)     # the miss is a cold one
+                q0, reads0 = tdb.query_count, tplane.counters["disk_reads"]
+                miss = await fetch(f"{b}/videos/{slug}/{rel}")
+                q1, reads1 = tdb.query_count, tplane.counters["disk_reads"]
+                hit = await fetch(f"{b}/videos/{slug}/{rel}")
+                want = (vdir / slug / rel).read_bytes()
+                if miss[0] != 200 or hit[0] != 200 or miss[1] != want \
+                        or hit[1] != want or reads1 - reads0 != 1 \
+                        or tdb.query_count != q1 \
+                        or tplane.counters["disk_reads"] != reads1:
+                    fail(f"serve {name}: {rel} miss {miss[0]} hit {hit[0]}, "
+                         f"disk reads {reads1 - reads0} then "
+                         f"{tplane.counters['disk_reads'] - reads1}, "
+                         f"hit queries {tdb.query_count - q1}")
+                hits[name] = {"segment": rel, "bytes": len(want),
+                              "miss_ms": miss[3], "hit_ms": hit[3],
+                              "miss_queries": q1 - q0}
+                config.DOWNLOADS_ENABLED = True
+                for r, meta in sorted(files.items()):
+                    st, body, _, _ = await fetch(f"{b}/videos/{slug}/{r}")
+                    if st != 200 or body != (vdir / slug / r).read_bytes() \
+                            or hashlib.sha256(body).hexdigest() \
+                            != meta["sha256"]:
+                        fail(f"serve {name}: {r} answered {st}, "
+                             f"{len(body)} bytes")
+                config.DOWNLOADS_ENABLED = False
+                hits[name]["files"] = len(files)
+                etag = hit[2]["ETag"]
+                u = f"{b}/videos/{slug}/{rel}"
+                ranged = await fetch(u, headers={"Range": "bytes=100-199"})
+                cond = await fetch(u, headers={"If-None-Match": etag})
+                head = await fetch(u, "HEAD")
+                # the daemon's tree keeps the source; a remote worker
+                # uploads none (the server holds it)
+                orig = next((r for r in files if r.startswith("original")),
+                            None)
+                gated = (await fetch(f"{b}/videos/{slug}/{orig}"))[0] \
+                    if orig else None
+                if (ranged[0], ranged[1], ranged[2].get("Content-Range")) \
+                        != (206, want[100:200], f"bytes 100-199/{len(want)}") \
+                        or cond[0] != 304 or cond[1] \
+                        or (head[0], head[1], head[2]["Content-Length"]) \
+                        != (200, b"", str(len(want))) \
+                        or gated != (403 if name == "serve" else gated):
+                    fail(f"serve {name}: range {ranged[0]}, 304 {cond[0]}, "
+                         f"HEAD {head[0]}, original {orig}: {gated}")
+            pending = await vids.create_video(db, "Not Ready")
+            (d / "videos" / pending["slug"]).mkdir(parents=True)
+            shutil.copy(d / "videos" / video["slug"] / "master.m3u8",
+                        d / "videos" / pending["slug"] / "master.m3u8")
+            nr = await fetch(f"{base}/videos/{pending['slug']}/master.m3u8")
+            if nr[0] != 404:
+                fail(f"serve: a tree that is not ready answered {nr[0]}")
+            # the disk L2 fills a second plane
+            slug, rel = video["slug"], hits["serve"]["segment"]
+            l2 = dict(l2_bytes=SERVE_L2_BYTES, l2_dir=d / "l2")
+            first = DeliveryPlane(db, d / "videos", **l2)
+            await first.fetch(slug, rel)
+            await drain(first)
+            second = DeliveryPlane(db, d / "videos", **l2)
+            t_l2 = time.perf_counter()
+            got = await second.fetch(slug, rel)
+            out["l2_fill_ms"] = round((time.perf_counter() - t_l2) * 1e3, 3)
+            if got.body != (d / "videos" / slug / rel).read_bytes() \
+                    or second.counters["disk_reads"] \
+                    or second.l2.stats()["hits"] != 1:
+                fail(f"serve: L2 fill {second.counters} {second.l2.stats()}")
+            await first.close()
+            await second.close()
+            # a ring of two origins over the remote tree
+            ports = (_free_port(), _free_port())
+            urls = tuple(f"http://127.0.0.1:{p}" for p in ports)
+            config.DELIVERY_PEERS = urls
+            origins = []
+            for own, port in zip(urls, ports):
+                config.DELIVERY_SELF_URL = own
+                oapp = build_public_app(rdb, video_dir=remote / "videos")
+                await serve(oapp, port)
+                origins.append(oapp[DELIVERY])
+            slug = upload["slug"]
+            files = integrity.load_manifest(remote / "videos" / slug)
+            ring = Ring(urls)
+            peer = {}
+            immutable = [r for r in sorted(files)
+                         if not r.startswith("original")
+                         and not r.endswith((".m3u8", ".mpd"))]
+            for i, (own, plane_i) in enumerate(zip(urls, origins)):
+                other = urls[1 - i]
+                rel = next((r for r in immutable
+                            if ring.owner(f"{slug}/{r}") == other), None)
+                if rel is None:
+                    fail(f"serve: {other} owns none of {immutable}")
+                before = dict(plane_i.counters)
+                got = await fetch(f"{own}/videos/{slug}/{rel}")
+                if got[0] != 200 or got[1] != (
+                        remote / "videos" / slug / rel).read_bytes() \
+                        or plane_i.counters["peer_fills"] != 1 \
+                        or plane_i.counters["disk_reads"] \
+                        != before["disk_reads"]:
+                    fail(f"serve: peer fill at {own}: {got[0]} "
+                         f"{plane_i.counters}")
+                peer[own] = {"segment": rel, "ms": got[3]}
+            out["hits"], out["peer_fills"] = hits, peer
+        finally:
+            await session.close()
+            for runner in runners:
+                await runner.cleanup()
+            for db_ in dbs:
+                await db_.disconnect()
+            if fake is not None:
+                fake.stop()
+
+    t0 = time.perf_counter()
+    try:
+        asyncio.run(drive())
+    finally:
+        for k, v in saved.items():
+            setattr(config, k, v)
+    out["wall_s"] = round(time.perf_counter() - t0, 2)
+    pre = out["prewarm"]
+    if out["launches"] != SERVE_LAUNCHES \
+            or out["claim_latency_s"] > SERVE_CLAIM_MAX_S \
+            or pre["warmed_total"] < 2 or pre["prewarm_runs"] != 1 \
+            or pre["prewarm_errors"] or pre["invalidations"] < 1:
+        fail(f"serve: launches {out['launches']}, claim latency "
+             f"{out['claim_latency_s']} s, prewarm {pre}")
+    log("serve: " + json.dumps(out))
+    log("serve on " + smi("--query-gpu=name,power.limit"))
+    return out["launches"]
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available; nothing was run")
@@ -3346,6 +3687,7 @@ def main() -> int:
                                 compile_cold)
     launches["daemon"] = timed("daemon", phase_daemon, work, ip_path, sources)
     launches["remote"] = timed("remote", phase_remote, work, ip_path, sources)
+    launches["serve"] = timed("serve", phase_serve, work, sources)
     timed("asr", phase_asr, work)       # fails on any resize launch
     launches["asr"] = 0
     shutil.rmtree(work, ignore_errors=True)

@@ -200,8 +200,8 @@ def test_engine_survives_a_failed_batch(assets):
 
 
 def test_submit_failpoint_and_spec(assets):
-    with pytest.raises(ValueError):       # a site the port does not have
-        failpoints.arm_from_spec("delivery.read=1")
+    with pytest.raises(ValueError):       # a site neither package has
+        failpoints.arm_from_spec("delivery.unknown=1")
     assert failpoints.arm_from_spec("asr.submit=1") == ["asr.submit"]
     engine = AsrEngine(assets, batch_windows=2, tick_s=0.0)
     try:

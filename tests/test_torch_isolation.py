@@ -6,7 +6,9 @@ Checked twice: by importing every port module (and chip_smoke) in a
 subprocess whose ``sys.meta_path`` refuses jax/jaxlib/vlog_tpu/httpx,
 and by reading every import statement in their sources. The walk covers
 the HTTP plane's modules (the Worker API server, auth, the remote
-worker, the SLO plane, the GC).
+worker, the SLO plane, the GC) and the serving plane's (the Postgres
+facade and its wire-protocol double, the delivery plane, the public API
+and its UI).
 """
 
 from __future__ import annotations
@@ -22,7 +24,14 @@ PORT = ROOT / "vlog_tpu_torch"
 BLOCKED = ("jax", "jaxlib", "vlog_tpu", "httpx")
 HTTP_PLANE = ("vlog_tpu_torch.api.worker_api", "vlog_tpu_torch.api.auth",
               "vlog_tpu_torch.api.errors", "vlog_tpu_torch.worker.remote",
-              "vlog_tpu_torch.obs.slo", "vlog_tpu_torch.storage.gc")
+              "vlog_tpu_torch.obs.slo", "vlog_tpu_torch.storage.gc",
+              # the serving plane and the Postgres facade
+              "vlog_tpu_torch.db.pg", "vlog_tpu_torch.db.pgfake",
+              "vlog_tpu_torch.delivery", "vlog_tpu_torch.delivery.cache",
+              "vlog_tpu_torch.delivery.gossip", "vlog_tpu_torch.delivery.http",
+              "vlog_tpu_torch.delivery.l2", "vlog_tpu_torch.delivery.plane",
+              "vlog_tpu_torch.delivery.ring", "vlog_tpu_torch.api.public_api",
+              "vlog_tpu_torch.api.pagination", "vlog_tpu_torch.web")
 
 _BLOCKED_IMPORT_SCRIPT = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys

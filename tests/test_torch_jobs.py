@@ -98,13 +98,25 @@ def test_enum_values_equal(name):
             == [(m.name, m.value) for m in getattr(ref, name)])
 
 
-def test_open_database_refuses_postgres(tmp_path):
-    from vlog_tpu_torch.db.core import Database, open_database
+def test_open_database_refuses_postgres(tmp_path, monkeypatch):
+    """A Postgres URL opens the port's libpq facade and is never taken
+    for a sqlite path: no file appears, even after connecting fails."""
+    import asyncio
 
+    from vlog_tpu_torch.db.core import Database, open_database
+    from vlog_tpu_torch.db.pg import PgDatabase, PgError
+
+    monkeypatch.chdir(tmp_path)
     for url in ("postgres://u@h/db", "postgresql://h/db",
                 "host=h dbname=vlog"):
-        with pytest.raises(NotImplementedError, match="13b"):
-            open_database(url)
+        db = open_database(url)
+        assert isinstance(db, PgDatabase) and db.dialect == "postgres"
+        assert db.url == url
+    refused = open_database("postgresql://u@127.0.0.1:1/vlog"
+                            "?connect_timeout=2")
+    with pytest.raises(PgError, match="connect failed"):
+        asyncio.run(refused.connect())
+    assert list(tmp_path.iterdir()) == []
     assert isinstance(open_database(f"sqlite:///{tmp_path / 'a.db'}"),
                       Database)
 

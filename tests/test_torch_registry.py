@@ -205,6 +205,12 @@ def test_new_sites_are_registered():
     # the remote worker and the Worker API register theirs
     assert {"remote.upload", "remote.claim", "upload.corrupt", "claim.fence",
             "checkpoint.upload", "storage.gc"} <= set(failpoints.SITES)
-    # the delivery plane is not ported: its sites stay unknown
+    # the delivery plane registers its five
+    assert {"delivery.read", "delivery.shed", "delivery.peer",
+            "delivery.gossip", "delivery.hedge"} <= set(failpoints.SITES)
+    # a name neither package registers stays unknown
+    from vlog_tpu.utils import failpoints as ref_failpoints
+
+    assert "delivery.unknown" not in ref_failpoints.SITES
     with pytest.raises(ValueError, match="unknown failpoint site"):
-        failpoints.arm_from_spec("delivery.read=1")
+        failpoints.arm_from_spec("delivery.unknown=1")

@@ -2,14 +2,15 @@
 vlog_tpu_torch.worker.remote``, and the Worker API server's, ``python -m
 vlog_tpu_torch.api.worker_api``.
 
-- Both in subprocesses on a temporary sqlite file: the worker registers
-  itself (dev mode, no admin secret), runs a sprite job with
-  ``--device cpu --no-backend``, answers ``/health`` and ``/ready`` on
-  its health port; SIGTERM: the drain and exit code 0.
+- Both in subprocesses on a temporary sqlite file: the worker (``_amain``
+  on the CPU through ``python -c``, since the CLI has no device option)
+  registers itself (dev mode, no admin secret), runs a sprite job with
+  no backend, answers ``/health`` and ``/ready`` on its health port;
+  SIGTERM: the drain and exit code 0.
 - ``_amain(args, device="cpu")`` in-process against the port's server:
   the ``restart`` verb ends it with ``mgmt.RESTART_EXIT_CODE``.
-- Without ``--device`` on a machine with no CUDA the entry point raises
-  before it touches the network.
+- ``main`` always runs on CUDA (``--help`` lists no device option): on a
+  machine with no CUDA it raises before it touches the network.
 """
 
 from __future__ import annotations
@@ -86,6 +87,19 @@ def _stop(proc: subprocess.Popen) -> str:
     return proc.communicate()[0]
 
 
+# ``_amain`` on the CPU in a child process: ``main`` without its device
+# (the CLI has no option for it), sprites only, no backend.
+_CHILD = """
+import argparse, asyncio, logging, sys
+from vlog_tpu_torch.worker.remote import _amain
+logging.basicConfig(level=logging.INFO)
+asyncio.run(_amain(argparse.Namespace(
+    api=sys.argv[1], key="", admin_secret="", name="cli-rw",
+    work_dir=sys.argv[2], accelerator="tpu", kinds="sprite", backend="",
+    no_backend=True, whisper_dir=None), device="cpu"))
+"""
+
+
 def test_server_and_worker_clis_run_a_job_and_drain(run, tmp_path):
     db_path = tmp_path / "cli.db"
     db_url = f"sqlite:///{db_path}"
@@ -108,10 +122,8 @@ def test_server_and_worker_clis_run_a_job_and_drain(run, tmp_path):
     try:
         _wait_http(f"http://127.0.0.1:{api_port}/healthz")
         worker = subprocess.Popen(
-            [sys.executable, "-m", "vlog_tpu_torch.worker.remote", "--api",
-             f"http://127.0.0.1:{api_port}", "--name", "cli-rw",
-             "--device", "cpu", "--no-backend", "--kinds", "sprite",
-             "--work-dir", str(tmp_path / "work")],
+            [sys.executable, "-c", _CHILD, f"http://127.0.0.1:{api_port}",
+             str(tmp_path / "work")],
             cwd=tmp_path, env=env, stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True)
         _poll(db_path, f"SELECT completed_at FROM jobs WHERE id={job_id}")
@@ -180,6 +192,14 @@ def test_amain_restart_verb_exits_with_the_restart_code(run, tmp_path,
     with pytest.raises(SystemExit) as exc:
         run(go())
     assert exc.value.code == RESTART_EXIT_CODE
+
+
+def test_cli_has_no_device_option(capsys):
+    with pytest.raises(SystemExit) as exc:
+        remote.main(["--help"])
+    assert exc.value.code == 0
+    out = capsys.readouterr().out
+    assert "--no-backend" in out and "--device" not in out
 
 
 @pytest.mark.parametrize("extra", [[], ["--no-backend"]])

@@ -272,6 +272,142 @@ CLAIM_RECHECK_S: float = _env_float("VLOG_CLAIM_RECHECK_S", 2.0, lo=0.1)
 HEARTBEAT_FLUSH_S: float = _env_float("VLOG_HEARTBEAT_FLUSH_S", 0.0, lo=0.0)
 METRICS_DB_TTL_S: float = _env_float("VLOG_METRICS_DB_TTL_S", 5.0, lo=0.0)
 
+# The public API (api/public_api.py): its port, and whether the source
+# upload (``original*``) is downloadable.
+PUBLIC_PORT: int = _env_int("VLOG_PUBLIC_PORT", 9000, lo=1, hi=65535)
+DOWNLOADS_ENABLED: bool = _env_bool("VLOG_DOWNLOADS_ENABLED", False)
+
+# The delivery plane under the public API's media route (delivery/): the
+# L1 segment cache, admission, the disk L2, the peer ring, gossip,
+# hedged fills and prewarm. The JAX package's names and defaults.
+
+# Byte budget of the in-memory LRU segment cache (0 disables caching;
+# requests still flow through the same response function, so cached and
+# uncached responses stay byte-identical).
+DELIVERY_CACHE_BYTES: int = _env_int(
+    "VLOG_DELIVERY_CACHE_BYTES", 256 * 1024**2, lo=0)
+# Distinct cache-miss disk reads allowed in flight at once; misses past
+# the bound answer 503 + Retry-After instead of queueing on the volume
+# (single-flight already collapses same-segment misses to one read).
+DELIVERY_MAX_INFLIGHT_READS: int = _env_int(
+    "VLOG_DELIVERY_MAX_INFLIGHT_READS", 64, lo=1)
+# Mutable manifests (.m3u8/.mpd) cache for this long; segments are
+# immutable (digest-keyed) and live until evicted or invalidated.
+DELIVERY_MANIFEST_TTL_S: float = _env_float(
+    "VLOG_DELIVERY_MANIFEST_TTL", 2.0, lo=0.0)
+# Segment bodies are pinned by default (0): in-process invalidation
+# covers every publish/re-encode path and steady state stays
+# zero-syscall. In a SPLIT deployment — trees mutated by an admin or
+# worker PROCESS the serving process can't see — invalidation cannot
+# fan out, so set a TTL here to bound how long a republished segment
+# may serve stale from this cache.
+DELIVERY_SEGMENT_TTL_S: float = _env_float(
+    "VLOG_DELIVERY_SEGMENT_TTL", 0.0, lo=0.0)
+# Publish-state (slug -> ready/deleted/missing) cache TTL: the window in
+# which a publish/delete in ANOTHER process may be stale here. In-process
+# mutations invalidate explicitly and are visible immediately.
+DELIVERY_STATE_TTL_S: float = _env_float(
+    "VLOG_DELIVERY_STATE_TTL", 5.0, lo=0.0)
+# Objects larger than this bypass the buffer cache and stream from disk
+# (sized well above any 4-6 s segment; catches source downloads).
+DELIVERY_MAX_ENTRY_BYTES: int = _env_int(
+    "VLOG_DELIVERY_MAX_ENTRY_BYTES", 32 * 1024**2, lo=1)
+
+# -- distributed tier (L2 + peer-fill + prewarm + sendfile) --------------
+
+# Byte budget of the disk-backed L2 below the RAM LRU (0 disables the
+# disk tier entirely). Entries spill here on L1 eviction and on fill;
+# every read back is sha256-verified against the publish manifest before
+# it can serve, so a corrupt or truncated spill refills instead of
+# serving.
+DELIVERY_L2_BYTES: int = _env_int("VLOG_DELIVERY_L2_BYTES", 0, lo=0)
+# Directory holding the digest-named L2 store (content-addressed:
+# <sha256[:2]>/<sha256>). Safe to wipe at any time — it is purely a
+# warm-set cache rebuilt from the origin tree.
+DELIVERY_L2_DIR: Path = _env_path(
+    "VLOG_DELIVERY_L2_DIR", str(BASE_DIR / "delivery-l2"))
+# Comma-separated base URLs of every origin process in the delivery
+# ring (including this one). Empty = no ring: every miss fills from
+# local disk. With a ring, a miss on a non-owner origin fetches the
+# object from its rendezvous-hash owner over the public /videos route
+# (digest-checked) before falling back to local disk.
+DELIVERY_PEERS: tuple[str, ...] = tuple(
+    u.strip().rstrip("/") for u in
+    _env_str("VLOG_DELIVERY_PEERS", "").split(",") if u.strip())
+# This process's own base URL as it appears in VLOG_DELIVERY_PEERS, so
+# the ring can tell "I am the owner" from "fetch from the owner". Empty
+# with a non-empty ring means this process owns nothing (pure edge).
+DELIVERY_SELF_URL: str = _env_str(
+    "VLOG_DELIVERY_SELF_URL", "").rstrip("/")
+# Per-object peer-fetch budget; a slow or down owner past this falls
+# back to local fill and starts a short cooldown for that peer.
+DELIVERY_PEER_TIMEOUT_S: float = _env_float(
+    "VLOG_DELIVERY_PEER_TIMEOUT", 2.0, lo=0.1)
+# How many leading media segments of each rung finalize_ready warms
+# into the cache (plus every init segment). 0 disables prewarm.
+DELIVERY_PREWARM_SEGMENTS: int = _env_int(
+    "VLOG_DELIVERY_PREWARM_SEGMENTS", 2, lo=0)
+# L2 hits at or above this size serve zero-copy (os.sendfile via a
+# file response) instead of buffering into the RAM LRU; smaller hits
+# promote to L1 as usual.
+DELIVERY_SENDFILE_BYTES: int = _env_int(
+    "VLOG_DELIVERY_SENDFILE_BYTES", 8 * 1024**2, lo=1)
+# How long a peer that failed a fill (transport error or non-503
+# status) sits out before fills route to it again. A 503 shed with a
+# Retry-After header overrides this with the peer's own number.
+DELIVERY_PEER_COOLDOWN_S: float = _env_float(
+    "VLOG_DELIVERY_PEER_COOLDOWN_S", 5.0, lo=0.0)
+
+# -- self-healing fabric (gossip membership + hedged fills + heat) -------
+
+# Mean seconds between gossip heartbeat rounds (each round probes every
+# known peer over GET /api/delivery/gossip). 0 disables the probe loop:
+# membership then moves only on fill failures/successes.
+DELIVERY_GOSSIP_INTERVAL_S: float = _env_float(
+    "VLOG_DELIVERY_GOSSIP_INTERVAL", 1.0, lo=0.0)
+# Probe-interval jitter as a fraction of the interval (bounded to
+# [interval*(1-j), interval*(1+j)]) so N origins never probe in
+# lockstep and suspect windows desynchronize across the fleet.
+DELIVERY_GOSSIP_JITTER: float = _env_float(
+    "VLOG_DELIVERY_GOSSIP_JITTER", 0.25, lo=0.0, hi=0.9)
+# Consecutive transport/timeout failures (probe or fill) before an
+# alive peer turns suspect. Suspects keep their ring ownership but
+# fills route around them immediately.
+DELIVERY_GOSSIP_SUSPECT_AFTER: int = _env_int(
+    "VLOG_DELIVERY_GOSSIP_SUSPECT_AFTER", 2, lo=1)
+# A suspect silent this long goes down: it leaves the ownership set and
+# the ring version bumps, so rendezvous routing rebalances its keys.
+# One successful heartbeat rejoins it.
+DELIVERY_GOSSIP_DOWN_S: float = _env_float(
+    "VLOG_DELIVERY_GOSSIP_DOWN", 3.0, lo=0.0)
+# How long a digest-liar peer (served bytes failing the manifest sha256
+# check) is quarantined out of the ownership set, regardless of
+# reachability.
+DELIVERY_GOSSIP_QUARANTINE_S: float = _env_float(
+    "VLOG_DELIVERY_GOSSIP_QUARANTINE", 60.0, lo=0.0)
+# Latency budget before a miss routed to the owner launches a hedge
+# fill to the next-ranked peer (first digest-valid response wins, the
+# loser is cancelled). Once enough fill samples accumulate the budget
+# adapts to the observed p95 fill latency, clamped to [this/4, 4*this].
+# 0 disables hedging.
+DELIVERY_HEDGE_MS: float = _env_float(
+    "VLOG_DELIVERY_HEDGE_MS", 250.0, lo=0.0)
+# Half-life (seconds) of the per-slug exponential heat decay behind
+# popularity-aware L2 admission. Heat rises by 1 per request to the
+# slug and halves every this-many seconds.
+DELIVERY_HEAT_HALFLIFE_S: float = _env_float(
+    "VLOG_DELIVERY_HEAT_HALFLIFE", 300.0, lo=1.0)
+# Minimum slug heat for a body to be admitted into the disk L2
+# (one-hit-wonders bypass the spill). 0 admits everything — the
+# pre-fabric behavior.
+DELIVERY_L2_ADMIT_HEAT: float = _env_float(
+    "VLOG_DELIVERY_L2_ADMIT_HEAT", 0.0, lo=0.0)
+# Slugs at or above this heat resist L2 eviction: the sweep gives their
+# entries a second chance (bounded) and evicts colder bytes first.
+# 0 keeps pure LRU eviction.
+DELIVERY_L2_HOT_HEAT: float = _env_float(
+    "VLOG_DELIVERY_L2_HOT_HEAT", 0.0, lo=0.0)
+
 # SLO plane (obs/slo.py): burn-rate windows, the alert threshold, the
 # exemplar ring, the evaluation cadence of an embedding process.
 SLO_FAST_WINDOW_S: float = _env_float("VLOG_SLO_FAST_WINDOW_S", 300.0,

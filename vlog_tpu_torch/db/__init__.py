@@ -1,11 +1,11 @@
 """Persistence layer: async database facade + schema (a copy of
-``vlog_tpu/db``'s sqlite facade, schema and retry policy; the Postgres
-facade is not ported, ROADMAP Queue A item 13b).
+``vlog_tpu/db``: the sqlite facade, the Postgres facade over libpq, its
+wire-protocol test double, the schema and the retry policy).
 
 Reference parity: api/database.py (SQLAlchemy Core + `databases` pool over
-Postgres). Neither is available in this environment, so this is an in-house
-async facade over sqlite3 (WAL mode, multi-process safe) with a driver seam a
-Postgres driver can plug into later.
+Postgres). Neither is a dependency here: :mod:`.core` is an async facade
+over sqlite3 (WAL mode, multi-process safe) and :mod:`.pg` the same API
+over the system libpq; :func:`.core.open_database` picks one by URL.
 """
 
 from vlog_tpu_torch.db.core import Database, Transaction

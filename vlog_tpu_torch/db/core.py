@@ -1,5 +1,5 @@
 """Async database facade over sqlite3 (a copy of ``vlog_tpu/db/core.py``;
-the Postgres facade is not ported).
+Postgres URLs open the port's :mod:`.pg` facade).
 
 The reference used `databases.Database` over asyncpg (api/database.py:11).
 Here the same *shape* — ``fetch_one`` / ``fetch_all`` / ``execute`` /
@@ -83,20 +83,20 @@ class Transaction:
 
 
 def open_database(url: str):
-    """Facade factory: a sqlite path/URL is served by :class:`Database`.
+    """Facade factory: sqlite (default) or Postgres by URL scheme.
 
     ``postgres://`` / ``postgresql://`` URLs (and libpq keyword DSNs
-    containing ``dbname=``), which the JAX package serves with its libpq
-    facade, raise :class:`NotImplementedError`: the port's Postgres
-    facade is not written (ROADMAP Queue A item 13b), and a Postgres URL
-    must never quietly open a sqlite file of that name.
+    containing ``host=``/``dbname=``) return the first-party libpq-backed
+    :class:`vlog_tpu_torch.db.pg.PgDatabase` — real ``FOR UPDATE SKIP LOCKED``
+    claims for multi-node fleets (reference api/database.py:11). Anything
+    else is a sqlite path/URL served by :class:`Database`.
     """
     low = url.strip().lower()
     if (low.startswith(("postgres://", "postgresql://"))
             or ("dbname=" in low and not low.startswith("sqlite"))):
-        raise NotImplementedError(
-            f"database URL {url!r}: the port serves sqlite only; its "
-            "Postgres facade is ROADMAP Queue A item 13b")
+        from vlog_tpu_torch.db.pg import PgDatabase
+
+        return PgDatabase(url)
     return Database(url)
 
 

@@ -1,6 +1,5 @@
 """Realtime dispatch/event plane: pub/sub wakeups for claims and SSE (a
-copy of ``vlog_tpu/jobs/events.py`` without its Postgres LISTEN/NOTIFY
-bus: the port serves sqlite only).
+copy of ``vlog_tpu/jobs/events.py``).
 
 Reference analog: the reference dispatches work through Redis Streams
 with consumer groups (api/job_queue.py:34-350) and fans progress out
@@ -14,9 +13,11 @@ This module closes the latency gap first-party:
   single-box stack) gets event-driven dispatch; separate processes
   still converge within one poll interval (the DB poll remains the
   source of truth — events are a WAKEUP hint, never a data channel).
-- The JAX package's ``PgNotifyBus`` bridges the same API over Postgres
-  LISTEN/NOTIFY; the port has no Postgres facade (ROADMAP Queue A item
-  13b), so every database gets the in-process bus.
+- :class:`PgNotifyBus` — the same API bridged over Postgres
+  LISTEN/NOTIFY on the first-party libpq client (db/pg.py), so
+  multi-node fleets get cross-process wakeups through the database
+  they already share, with no extra broker to run (the reference needs
+  a Redis; we need nothing).
 
 Every consumer treats a wakeup as advisory: the claim/poll logic that
 runs afterwards is unchanged, so a lost notification degrades to the
@@ -26,6 +27,7 @@ old poll latency instead of losing work.
 from __future__ import annotations
 
 import asyncio
+import json
 import logging
 import threading
 from collections import defaultdict
@@ -154,6 +156,78 @@ class LocalEventBus:
             self._subs.clear()
 
 
+class PgNotifyBus(LocalEventBus):
+    """LocalEventBus fronted by Postgres LISTEN/NOTIFY.
+
+    publish() issues ``pg_notify`` through the shared PgDatabase (so
+    every node's listener hears it); a dedicated libpq connection in a
+    daemon thread LISTENs and feeds the in-process bus. Payloads ride
+    as JSON in the notify payload (8000-byte PG limit — wakeup hints
+    are tiny)."""
+
+    CHANNELS = (CH_JOBS, CH_PROGRESS, CH_WEBHOOKS)
+
+    def __init__(self, db: Any) -> None:
+        super().__init__()
+        self._db = db
+        self._listener = None          # db/pg.py PgListener
+        self._started = False
+        # strong refs: ensure_future alone leaves the task weakly
+        # referenced and collectable mid-flight — a GC'd notify task
+        # silently drops the wakeup
+        self._notify_tasks: set[Any] = set()
+
+    async def start(self) -> None:
+        await super().start()
+        if self._started:
+            return
+        self._started = True
+        from vlog_tpu_torch.db.pg import PgListener
+
+        def deliver(channel: str, payload: str) -> None:
+            try:
+                data = json.loads(payload) if payload else {}
+            except ValueError:
+                data = {"raw": payload}
+            # LocalEventBus.publish marshals into the loop
+            LocalEventBus.publish(self, channel, data)
+
+        self._listener = PgListener(self._db.url, self.CHANNELS, deliver)
+        await asyncio.to_thread(self._listener.start)
+
+    def publish(self, channel: str, payload: dict | None = None) -> None:
+        """NOTIFY through the database; local delivery happens when the
+        listener connection hears it back (single code path for local
+        and remote subscribers)."""
+        body = json.dumps(payload or {}, separators=(",", ":"))
+
+        async def _notify() -> None:
+            try:
+                await self._db.execute(
+                    "SELECT pg_notify(:ch, :body)",
+                    {"ch": channel, "body": body})
+            except Exception:           # noqa: BLE001 — wakeups are hints
+                log.debug("pg_notify failed", exc_info=True)
+
+        try:
+            asyncio.get_running_loop()
+            task = asyncio.ensure_future(_notify())
+            self._notify_tasks.add(task)
+            task.add_done_callback(self._notify_tasks.discard)
+        except RuntimeError:
+            loop = self._loop
+            if loop is not None and not loop.is_closed():
+                asyncio.run_coroutine_threadsafe(_notify(), loop)
+            # else: no loop to send from; poll covers it
+
+    async def close(self) -> None:
+        if self._listener is not None:
+            await asyncio.to_thread(self._listener.stop)
+            self._listener = None
+        self._started = False
+        await super().close()
+
+
 def wake(db: Any, channel: str, payload: dict | None = None) -> None:
     """Post-commit wakeup hint. Never load-bearing: a lost hint
     degrades to poll latency, so failures are swallowed — every
@@ -169,10 +243,14 @@ def wake(db: Any, channel: str, payload: dict | None = None) -> None:
 
 
 def bus_for(db: Any) -> LocalEventBus:
-    """The event bus of a Database instance (in-process). Cached on the
-    db object so every service sharing the Database shares the bus."""
+    """The event bus matching a Database instance: NOTIFY-backed on the
+    Postgres facade, in-process otherwise. Cached on the db object so
+    every service sharing the Database shares the bus."""
     bus = getattr(db, "_event_bus", None)
     if bus is None:
-        bus = LocalEventBus()
+        if getattr(db, "dialect", "sqlite") == "postgres":
+            bus = PgNotifyBus(db)
+        else:
+            bus = LocalEventBus()
         db._event_bus = bus
     return bus

@@ -88,12 +88,25 @@ async def get_video_serving_state(db: Database, slug: str) -> Row | None:
 
 async def invalidate_delivery(db: Database, video_id: int, *,
                               prewarm: bool = False) -> None:
-    """Evict a video from in-process delivery-plane caches after a
-    publish-visible mutation. The port serves no media (it has no
-    delivery plane), so this returns at once, as the JAX package's does
-    in a process with no delivery planes (a worker). The signature stays
-    so the job plane's callers are the reference's."""
-    return None
+    """Evict a video from any in-process delivery-plane caches after a
+    publish-visible mutation (status flip, publish, re-encode). A no-op
+    in processes that serve no media; lazy import keeps the job plane
+    free of a delivery dependency at import time.
+
+    ``prewarm=True`` (the publish path, finalize_ready) additionally
+    schedules a best-effort warm of the fresh tree's init segments +
+    leading media segments, so the first viewer hits RAM instead of
+    paying cold reads — the eviction always lands first."""
+    from vlog_tpu_torch import delivery
+
+    if not delivery.has_planes():
+        return      # worker/admin-only process: skip the slug lookup
+    row = await db.fetch_one("SELECT slug FROM videos WHERE id=:id",
+                             {"id": video_id})
+    if row is not None:
+        delivery.invalidate_slug(row["slug"])
+        if prewarm:
+            delivery.prewarm_slug(row["slug"])
 
 
 async def set_status(

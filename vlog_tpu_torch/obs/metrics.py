@@ -103,6 +103,105 @@ class RuntimeMetrics:
             "Ladder segments accepted from a verified partial tree by "
             "resume instead of re-encoded (summed across rungs)",
             registry=self.registry)
+        # Delivery plane (delivery/): origin segment cache + admission.
+        self.delivery_requests = Counter(
+            "vlog_delivery_requests_total",
+            "Delivery-plane media request outcomes "
+            "(hit, l2_hit, peer_fill, miss, bypass, shed)",
+            ["outcome"], registry=self.registry)
+        self.delivery_bytes = Counter(
+            "vlog_delivery_bytes_total",
+            "Payload bytes produced by the delivery plane, by source "
+            "(cache, l2, peer, disk)",
+            ["source"], registry=self.registry)
+        self.delivery_evictions = Counter(
+            "vlog_delivery_evictions_total",
+            "Segment-cache entries evicted to stay under the byte budget",
+            registry=self.registry)
+        self.delivery_collapses = Counter(
+            "vlog_delivery_collapses_total",
+            "Concurrent same-key misses collapsed onto one disk read",
+            registry=self.registry)
+        self.delivery_cache_bytes = Gauge(
+            "vlog_delivery_cache_bytes",
+            "Bytes currently held by the delivery segment cache",
+            registry=self.registry)
+        self.delivery_inflight_reads = Gauge(
+            "vlog_delivery_inflight_reads",
+            "Cache-fill disk reads currently in flight",
+            registry=self.registry)
+        # Distributed delivery tier: disk-backed L2, consistent-hash
+        # peer fill, publish-time prewarm (delivery/{l2,ring,plane}.py).
+        self.delivery_l2_requests = Counter(
+            "vlog_delivery_l2_requests_total",
+            "Disk L2 probe outcomes on L1 miss "
+            "(hit, miss, corrupt — corrupt entries are deleted and "
+            "refilled, never served)",
+            ["outcome"], registry=self.registry)
+        self.delivery_l2_bytes = Gauge(
+            "vlog_delivery_l2_bytes",
+            "Bytes currently held by the disk-backed delivery L2",
+            registry=self.registry)
+        self.delivery_l2_evictions = Counter(
+            "vlog_delivery_l2_evictions_total",
+            "Disk L2 entries evicted to stay under the byte budget",
+            registry=self.registry)
+        self.delivery_peer_fills = Counter(
+            "vlog_delivery_peer_fills_total",
+            "Consistent-hash peer fill outcomes (hit = digest-verified "
+            "body from a ring peer; failures classified as transport / "
+            "timeout / status / digest — only transport and timeout "
+            "feed gossip suspicion, digest quarantines the liar; every "
+            "failure degrades the fill to local disk)",
+            ["outcome"], registry=self.registry)
+        self.delivery_prewarm = Counter(
+            "vlog_delivery_prewarm_total",
+            "Publish-time prewarm segment outcomes (warmed, error)",
+            ["outcome"], registry=self.registry)
+        # Self-healing fabric: gossip membership, hedged fills, heat.
+        self.delivery_fill_seconds = Histogram(
+            "vlog_delivery_fill_seconds",
+            "Cache-fill latency by winning source (l2, peer, disk, "
+            "bypass) — the reservoir behind the p95-adaptive hedge "
+            "budget",
+            ["source"],
+            buckets=(0.001, 0.005, 0.02, 0.05, 0.1, 0.25, 0.5, 1.0,
+                     2.0, 5.0),
+            registry=self.registry)
+        self.delivery_hedges = Counter(
+            "vlog_delivery_hedges_total",
+            "Hedged peer-fill outcomes (launched = primary overran the "
+            "hedge budget, win = hedge beat the primary, primary_win = "
+            "primary finished first anyway; losers are cancelled and "
+            "never cached)",
+            ["outcome"], registry=self.registry)
+        self.delivery_coalesced_fills = Counter(
+            "vlog_delivery_coalesced_fills_total",
+            "Cross-origin fill requests (carrying the fill-token "
+            "header) that coalesced onto an already-in-flight local "
+            "fill — the flash-crowd one-disk-read-fleet-wide proof",
+            registry=self.registry)
+        self.delivery_gossip_probes = Counter(
+            "vlog_delivery_gossip_probes_total",
+            "Gossip heartbeat probe outcomes (ok, fail, drop — drop is "
+            "the delivery.gossip failpoint eating the heartbeat)",
+            ["outcome"], registry=self.registry)
+        self.delivery_ring_version = Gauge(
+            "vlog_delivery_ring_version",
+            "Version of the membership view the delivery ring was last "
+            "rebuilt from (bumps on peer death, quarantine, join, "
+            "rejoin)",
+            registry=self.registry)
+        self.delivery_l2_rescues = Counter(
+            "vlog_delivery_l2_rescues_total",
+            "Disk L2 eviction second-chances granted to entries of hot "
+            "slugs (heat-aware eviction spill)",
+            registry=self.registry)
+        self.delivery_stale_state = Counter(
+            "vlog_delivery_stale_state_total",
+            "Publish-state answers served stale because the database "
+            "was unavailable (coordination-plane brownout)",
+            registry=self.registry)
         # Mesh job scheduler (parallel/scheduler.py): slot arbitration
         # over the process's devices.
         self.mesh_slots = Gauge(

@@ -38,9 +38,9 @@ and ``jobs/qos.fleet_snapshot`` floors the scale hint at +1 while any
 objective alerts (a burning SLO means the fleet is behind even if the
 instantaneous backlog looks small).
 
-The port has no delivery plane (ROADMAP Queue A item 13c): the two
-delivery objectives find no registry family and count no events, as
-the reference's do in a process that has served nothing.
+The two delivery objectives read the delivery plane's families
+(``vlog_delivery_fill_seconds``, ``vlog_delivery_requests_total``), so
+they count the fills and sheds of the process's public app.
 
 Everything here is best-effort observability: evaluation never raises
 into callers, the exemplar ring is bounded (``VLOG_SLO_EXEMPLARS``),

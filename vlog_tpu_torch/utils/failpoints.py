@@ -1,5 +1,5 @@
-"""Deterministic fault-injection failpoints (the part of
-``vlog_tpu/utils/failpoints.py`` the port's paths hit).
+"""Deterministic fault-injection failpoints (a copy of
+``vlog_tpu/utils/failpoints.py``: the same sites).
 
 ==================  =====================================================
 site                where it fires
@@ -29,6 +29,22 @@ site                where it fires
 ``backend.encode``  at TorchBackend.run entry (worker compute thread)
 ``storage.verify``  at storage.integrity.verify_tree entry — forces a
                     manifest-verification rejection
+``delivery.read``   in the delivery plane's cache-fill disk read
+                    (delivery/plane.py) — the miss errors, the cache is
+                    not poisoned, the next request retries
+``delivery.shed``   at the delivery plane's admission check — forces the
+                    load-shed branch (503 + Retry-After) regardless of
+                    the in-flight read count
+``delivery.peer``   in the delivery plane's peer fill, before the owner
+                    fetch — an armed hit degrades the fill to local disk
+``delivery.gossip`` in the gossip probe loop, before each heartbeat
+                    (delivery/gossip.py) — the armed heartbeat is
+                    dropped on the floor, so membership must converge
+                    on suspicion from silence alone
+``delivery.hedge``  in the peer fill, per contacted peer — the armed
+                    fetch STALLS to the full peer timeout instead of
+                    erroring, so the hedge to the next-ranked peer is
+                    what must rescue tail latency
 ``device.fault``    compute thread, start of the backend ladder run
                     (worker/pipeline.py) — re-raised as a synthetic
                     CUDA-shaped device error (parallel/faults.py) so the
@@ -99,6 +115,15 @@ SITES: dict[str, str] = {
     "checkpoint.upload": "remote uploader's incremental checkpoint post and "
                          "the drain-time flush; the armed checkpoint write "
                          "fails",
+    "delivery.read": "delivery plane cache-fill, before the disk read",
+    "delivery.shed": "delivery plane admission check; forces load-shed",
+    "delivery.peer": "delivery plane peer fill, before the owner fetch; "
+                     "an armed hit degrades the fill to local disk",
+    "delivery.gossip": "gossip probe loop, before each heartbeat; the "
+                       "armed heartbeat is dropped (silence -> suspicion)",
+    "delivery.hedge": "peer fill, per contacted peer; the armed fetch "
+                      "stalls to the peer timeout instead of erroring, "
+                      "so hedging is what must rescue tail latency",
     "device.fault": "compute thread, start of the backend ladder run; "
                     "re-raised as a synthetic CUDA-shaped device error",
     "asr.submit": "JobHandle.submit, before a window enters the cross-job "
@@ -238,9 +263,5 @@ def counters() -> dict[str, dict[str, int]]:
 
 
 if os.environ.get(ENV_VAR):
-    # Only the sites registered here: a spec naming the JAX package's
-    # other sites arms nothing in the port.
     _rng.seed(int(os.environ.get(SEED_VAR, "0") or 0))
-    arm_from_spec(",".join(
-        e for e in os.environ[ENV_VAR].replace(";", ",").split(",")
-        if e.partition("=")[0].strip() in SITES))
+    arm_from_spec(os.environ[ENV_VAR])

@@ -26,7 +26,7 @@ its restart path is the ``restart`` command verb (exit code
 ``mgmt.RESTART_EXIT_CODE``).
 
 Run it: ``python -m vlog_tpu_torch.worker.remote --api http://host:9002
---key ... [--device cuda]``
+--key ...`` (always on CUDA: the CLI has no device option).
 """
 
 from __future__ import annotations
@@ -1584,7 +1584,7 @@ class RemoteWorker(ComputeWatchdogMixin):
 
 async def _amain(args: argparse.Namespace, *, device: str = "cuda") -> None:
     """The worker process: ``main``'s parsed options, on ``device`` (the
-    card unless ``--device cpu``)."""
+    card; the CLI has no option for it, and only tests pass ``"cpu"``)."""
     from vlog_tpu_torch.device import resolve_device
 
     resolve_device(device)     # before any network: no CPU fallback
@@ -1654,12 +1654,10 @@ def main(argv: list[str] | None = None) -> None:
     parser.add_argument("--backend", default="")
     parser.add_argument("--no-backend", action="store_true")
     parser.add_argument("--whisper-dir", default=None)
-    parser.add_argument("--device", default="cuda",
-                        help="the jobs' device: cuda (default) or cpu")
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO,
                         format="%(asctime)s %(name)s %(levelname)s %(message)s")
-    asyncio.run(_amain(args, device=args.device))
+    asyncio.run(_amain(args))
 
 
 if __name__ == "__main__":
