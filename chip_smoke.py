@@ -103,8 +103,8 @@ Phases (any failure exits non-zero; none is caught):
    constant QP in four 6-frame dispatches: byte-identical trees (the
    journal and ``outputs.json`` aside), 36 launches each, wall and
    ``stage_s`` per depth; H.264 on the resume phase's 360p rung at
-   constant QP (12 frames, two dispatches) at depths 1 and 2: identical
-   trees, depth 2 reaching ``max_in_flight`` 2; ``backend.pull`` armed
+   constant QP (12 frames, two dispatches) at depth 2 (the depth-1 run
+   was cut for time), reaching ``max_in_flight`` 2; ``backend.pull`` armed
    once (its second hit) at depth 2: the run raises, no ``vlog-pipe*`` or
    ``vlog-decode*`` thread is left, the resumed run writes the
    uninterrupted tree; a ``MeshScheduler`` over the card with one slot:
@@ -160,9 +160,10 @@ Phases (any failure exits non-zero; none is caught):
    dispatch 1 of a 12-frame transcode (0 s grace: the checkpoint flush,
    a ``preempted`` failure); worker 3 resumes it from the server's
    partial tree (``resumed_segments`` > 0, the tree equal to an
-   uninterrupted run's file for file), and runs a 24-frame transcode
-   whose lease is swept and reclaimed after dispatch 1: the next
-   progress post gets 409, the run stops at the next batch boundary,
+   uninterrupted run's file for file), and runs a 12-frame transcode
+   whose lease is swept and reclaimed after dispatch 1:
+   the next progress post gets 409, the run stops at the next batch
+   boundary (its last),
    no executor thread is left, the allocated bytes rise at most
    REMOTE_MEM_RISE_MAX; printed: each job's enqueue-to-ready, claim
    latencies, files and bytes uploaded, the transcode's upload overlap
@@ -188,12 +189,12 @@ Phases (any failure exits non-zero; none is caught):
    name and power limit;
 11. asr: Whisper at whisper-small width (seeded random weights, a
    synthetic vocabulary at whisper-small's special-token ids, written as
-   a checkpoint directory) on a seeded 100 s WAV of voiced-like bursts
+   a checkpoint directory) on a seeded 75 s WAV of voiced-like bursts
    whose last window is silent, through
    ``transcribe_video(wav, out, model_dir=..., device="cuda")`` with the
    defaults (language detection, beam 5, the engine's 8-window
-   buckets): ``captions.vtt`` parses, 4 windows, 3 live, one batch of 3
-   windows in 4 rows, no resize launch, TF32 off; then on one window the
+   buckets): ``captions.vtt`` parses, 3 windows, 2 live, one batch of 2
+   windows in 2 rows, no resize launch, TF32 off; then on one window the
    card against the port's CPU path (mel, encoder states, teacher-forced
    logits within stated bounds; the CPU stepped along the card's greedy
    tokens: the first differing step and the largest logit gap, bounded),
@@ -202,6 +203,24 @@ Phases (any failure exits non-zero; none is caught):
    and the times (mel, encoder, decoder step greedy and beam, the beam's
    bookkeeping, windows/s, tokens/s, audio seconds per wall second,
    launches and device-busy share of one beam step, the memory peak);
+11a. grid (after asr, on its checkpoint): the (data x rung) grid
+   on one card as four logical devices (``[cuda:0] * 4``; placement
+   across distinct cards is not shown on a one-card machine): the
+   slice's default plan on its 6-frame source under a one-slot
+   ``MeshScheduler`` lease at ``VLOG_TPU_MESH=data:1,rung:4`` (one rung
+   per column, 1x4): the tree byte-identical to the slice phase's, 12
+   launches; ``process_video(codec="h265")`` on the 24-frame source at
+   2x2 and 4x1 (each column's one real chain padded to the data width):
+   the trees byte-identical to the hevc phase's, 21 and 39 launches (per
+   column: data width x scaled rungs x 3, + 3 for the thumbnail); the
+   ASR engine on the asr phase's 2 live windows (greedy, 64 tokens, one
+   batch) on a 1-wide and a 2-wide lease (a row on each device): the
+   same tokens, rows a multiple of 2; ``dryrun.run(4, devices=[cuda:0] * 4)`` (records
+   under the work directory) and the same run on the CPU in a
+   subprocess beside the phase: the asserts, the PSNR within 1e-5, the
+   shape sweep printed (not multi-card scaling); every kernel call of
+   the phase recorded by (shape, frames) and each held to the plain
+   version afterwards on seeded planes with the matrices it used;
 12. where one 1080p frame's device time goes, stage by stage.
 
 Each phase prints its wall seconds. Prints a ``{"kernels": [...]}``
@@ -215,6 +234,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import shutil
 import subprocess
 import sys
@@ -357,9 +377,19 @@ class DeviceTimer:
     of the kernels the call launched, each call after a write of
     L2_FLUSH_BYTES (its kernels are told apart by name and left out).
     Every profile is read twice, raw (``_raw_kernels``, the reader the
-    breakdown uses) and through ``prof.events()``; the two must agree."""
+    breakdown uses) and through ``prof.events()``; the two must agree.
+    The flush writes are the profile's markers: a profile missing one of
+    the kernels of the writes before and right after the calls has lost
+    events and is taken again; a few more writes close the session, as
+    a session may drop its last events (seen on the card: the last
+    kernel missing from every profile of one function). A call's own
+    kernel count need not be constant
+    (a cuBLAS product may launch one kernel fewer in some calls): a
+    count that is no whole number per call is accepted only when the
+    next profile repeats it, as dropped events would not."""
 
     READERS_RTOL = 1e-6
+    GUARD_FLUSHES = 3       # writes after the closing one, to be dropped
 
     def __init__(self, dev):
         from torch.profiler import ProfilerActivity, profile
@@ -369,12 +399,21 @@ class DeviceTimer:
         self._buf = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device=dev)
         self.flush()
         torch.cuda.synchronize()
-        with self._profile() as prof:
-            self.flush()
-            torch.cuda.synchronize()
-        self._flush = {read: {name for name, _ in read(prof)}
-                       for read in (_raw_kernels, _tree_kernels)}
-        if not all(self._flush.values()):
+        # the process's first session may come back without device events
+        # (the tracer starting up): it is taken again, at most twice more
+        for _ in range(3):
+            with self._profile() as prof:
+                self.flush()
+                torch.cuda.synchronize()
+            self._flush = {read: {name for name, _ in read(prof)}
+                           for read in (_raw_kernels, _tree_kernels)}
+            # kernels per flush write: the marker count a profile must hold
+            self._flush_kernels = len(_raw_kernels(prof))
+            if all(self._flush.values()):
+                break
+            log("profile of the flush holds no device kernels; profiling "
+                "again")
+        else:
             fail("torch.profiler recorded no device kernels (raw, "
                  "prof.events(): "
                  f"{[len(read(prof)) for read in self._flush]})")
@@ -384,26 +423,47 @@ class DeviceTimer:
         self._buf.bitwise_not_()
 
     def ms(self, fn, reps: int) -> float:
-        """Device ms per call. A profile whose device kernels of the calls
-        are no whole number per call has lost events: it is taken again
-        (at most twice more); ``kernels_per_call`` keeps the count."""
+        """Device ms per call. A profile missing a flush kernel of the
+        reps + 1 writes around the calls has lost events, and one
+        whose calls' kernels are no whole number per call stands only when
+        the next profile holds the same number: otherwise it is taken
+        again (at most four more times). ``kernels_per_call`` is the
+        calls' kernels over ``reps``; a count that is no whole number is
+        logged with the kernels' names."""
+        from collections import Counter
+
         fn()
         torch.cuda.synchronize()
-        for _ in range(3):
+        want = self._flush_kernels * (reps + 1)
+        most = self._flush_kernels * (reps + 1 + self.GUARD_FLUSHES)
+        seen = None                     # the last complete profile's count
+        for _ in range(5):
             with self._profile() as prof:
                 for _ in range(reps):
                     self.flush()
                     fn()
+                for _ in range(1 + self.GUARD_FLUSHES):
+                    self.flush()        # the closing write, then guards
                 torch.cuda.synchronize()
+            events = _raw_kernels(prof)
+            markers = sum(1 for name, _ in events
+                          if name in self._flush[_raw_kernels])
             raw, tree = ([us for name, us in read(prof) if name not in flush]
                          for read, flush in self._flush.items())
-            if raw and len(raw) % reps == 0:
+            complete = want <= markers <= most
+            if raw and complete and (len(raw) % reps == 0
+                                     or len(raw) == seen):
                 break
-            log(f"profile holds {len(raw)} device kernels for {reps} calls; "
-                "profiling again")
+            seen = len(raw) if complete else None
+            log(f"profile holds {markers} flush kernels ({want} to {most}) "
+                f"and {len(raw)} kernels of {reps} calls; profiling again")
         else:
-            fail("torch.profiler lost device kernels of the call three times")
-        self.kernels_per_call = len(raw) // reps
+            fail("torch.profiler lost device kernels five times")
+        if len(raw) % reps:
+            log(f"the calls' kernels vary: {len(raw)} for {reps} calls "
+                + json.dumps(Counter(name for name, _ in events
+                                     if name not in self._flush[_raw_kernels])))
+        self.kernels_per_call = round(len(raw) / reps, 3)
         gap = abs(sum(raw) - sum(tree)) / sum(tree) if tree else math.inf
         if len(raw) != len(tree) or gap > self.READERS_RTOL:
             fail(f"profiler readers disagree: raw {len(raw)} kernels "
@@ -1691,9 +1751,10 @@ def phase_hevc(src: Path, work: Path) -> int:
 # ASR: Whisper at whisper-small width (random weights from ASR_SEED, a
 # synthetic byte-level vocabulary at whisper-small's special-token ids)
 ASR_SEED = 5
-ASR_AUDIO_S = 100.0      # windows at 0, 25, 50, 75 s; the last all silent
-ASR_SPEECH_END_S = 74.0
-ASR_WINDOWS, ASR_LIVE = 4, 3
+ASR_AUDIO_S = 75.0       # windows at 0, 25, 50 s; the last all silent
+ASR_SPEECH_END_S = 49.0
+ASR_WINDOWS, ASR_LIVE = 3, 2
+ASR_LIVE_ROWS = 2        # the power-of-two bucket of ASR_LIVE windows
 ASR_PACK_ROWS = 8        # the engine's default bucket (VLOG_ASR_BATCH_WINDOWS)
 ASR_PACK_AT = 3          # the solo window's row in the packed batch
 # Card against the port's CPU path on one window, float32 on both with
@@ -1838,9 +1899,10 @@ def phase_asr(work: Path) -> dict:
     want = {"windows_total": ASR_WINDOWS, "windows_live": ASR_LIVE,
             "windows_submitted": ASR_LIVE}
     if any(stats.get(k) != v for k, v in want.items()) \
-            or [(b["n"], b["rows"]) for b in log_] != [(ASR_LIVE, 4)]:
+            or [(b["n"], b["rows"]) for b in log_] != [(ASR_LIVE,
+                                                        ASR_LIVE_ROWS)]:
         fail(f"asr: windows {stats}, batches {log_}; want {want} and one "
-             f"batch of {ASR_LIVE} windows in 4 rows")
+             f"batch of {ASR_LIVE} windows in {ASR_LIVE_ROWS} rows")
     lang = res.language
     out.update(language=lang, cues=res.cue_count, wall_s=round(wall, 3),
                batch_s=round(log_[0]["elapsed_s"], 3), beam=config.WHISPER_BEAM,
@@ -1997,7 +2059,7 @@ def phase_asr(work: Path) -> dict:
 # The device runtime: the executor at several depths, its failpoint drain,
 # the mesh scheduler on the card, the profiler, the compile meter
 RUNTIME_HEVC_DEPTHS = (1, 2)
-RUNTIME_H264_DEPTHS = (1, 2)
+RUNTIME_H264_DEPTHS = (2,)   # depth 1 cut for time; depth 2 keeps the tree
 RUNTIME_TREE_SKIP = ("rc_journal.jsonl", "outputs.json")   # run state
 PROFILE_SESSION_S = 1.0
 TINY_WHISPER = dict(d_model=64, encoder_layers=1, decoder_layers=1,
@@ -2907,10 +2969,10 @@ def phase_remote(work: Path, ip_path: Path, sources: dict) -> int:
     (0 s drain grace: the flush, a ``preempted`` failure); worker 3
     resumes it from the server's partial tree (``resumed_segments`` >
     0; the tree equals an uninterrupted run's, file for file), runs the
-    uninterrupted one, and a 24-frame transcode whose lease is swept and
+    uninterrupted one, and a 12-frame transcode whose lease is swept and
     reclaimed after dispatch 1: the next progress post gets 409 and the
-    run stops at the next batch boundary (no executor thread left, the
-    allocated bytes held to REMOTE_MEM_RISE_MAX)."""
+    run stops at the next batch boundary, its last (no executor thread
+    left, the allocated bytes held to REMOTE_MEM_RISE_MAX)."""
     import asyncio
 
     from aiohttp import web
@@ -3147,7 +3209,8 @@ def phase_remote(work: Path, ip_path: Path, sources: dict) -> int:
                              if p.is_file())
             # 3. the resume, the uninterrupted run, the claim lost
             vid["whole"], _ = await enqueue("Whole", sources[RESUME_FRAMES])
-            vid["lost"], lost_job = await enqueue("Lost", sources[FRAMES])
+            vid["lost"], lost_job = await enqueue("Lost",
+                                                  sources[RESUME_FRAMES])
             w3 = make_worker(3, kinds=(JobKind.TRANSCODE, JobKind.SPRITE))
 
             async def steal(job_id):
@@ -3635,6 +3698,286 @@ def phase_serve(work: Path, sources: dict) -> int:
     return out["launches"]
 
 
+# ---------------------------------------------------------------------------
+# grid: the (data x rung) grid on one card as several logical devices
+GRID_WIDTH = 4               # [cuda:0] * 4: one card, four logical devices
+GRID_H264_SPEC = "data:1,rung:4"
+GRID_HEVC_SPECS = ("data:2,rung:2", "data:4,rung:1")
+GRID_ASR_WIDTH = 2
+GRID_ASR_BATCH = ASR_LIVE    # the live windows in one batch, split 1 + 1
+GRID_ASR_MAX_NEW = 64
+GRID_PSNR_RTOL = 1e-5
+GRID_DRYRUN_ITERS = 1        # timed dispatches per shape, workload and job
+GRID_CPU_TIMEOUT_S = 400.0
+
+
+def _grid_launches(rungs_spec, label: str) -> int:
+    """Resize launches of one dispatch over a grid labelled "DxR": per
+    column, its data width x its scaled rungs x 3 planes."""
+    from vlog_tpu_torch.ops import fused_resize
+    from vlog_tpu_torch.parallel.mesh import balanced_rung_columns
+
+    data, cols = (int(x) for x in label.split("x"))
+    scaled = [(h, w) != (SRC_H, SRC_W) for _, h, w, _ in rungs_spec]
+    return sum(data * sum(scaled[i] for i in col) * 3
+               for col in balanced_rung_columns(rungs_spec, cols)) \
+        * fused_resize.LAUNCHES_PER_CALL
+
+
+def _under_lease(devices, spec: str, fn, *args, **kw):
+    """``fn`` under a one-slot ``MeshScheduler`` lease over ``devices``
+    with ``VLOG_TPU_MESH=spec`` (restored after); returns (value, the
+    lease's grid label)."""
+    from vlog_tpu_torch import config
+    from vlog_tpu_torch.parallel.scheduler import MeshScheduler
+
+    saved = config.TPU_MESH_SPEC
+    config.TPU_MESH_SPEC = spec
+    sched = MeshScheduler(devices=devices, slots=1)
+    ticket = sched.admit()
+    try:
+        with ticket.acquire() as lease:
+            value = fn(*args, **kw)
+            return value, lease.shape
+    finally:
+        ticket.close()
+        config.TPU_MESH_SPEC = saved
+
+
+def _grid_asr(work: Path, card) -> dict:
+    """The engine on a GRID_ASR_WIDTH-wide lease over the card repeated,
+    on the asr phase's live windows: the tokens equal the 1-wide run's,
+    the rows a multiple of the width."""
+    from vlog_tpu_torch.asr import engine as engine_mod
+    from vlog_tpu_torch.asr import load
+    from vlog_tpu_torch.parallel.scheduler import MeshScheduler
+    from vlog_tpu_torch.worker.transcribe import _cut_windows, _live_windows
+
+    assets = load.load_whisper(work / "whisper-small", device="cuda")
+    samples = _asr_audio(ASR_SEED).astype(np.float32)
+    windows = _cut_windows(samples, window_s=30.0, overlap_s=5.0)
+    live = _live_windows(samples, windows, 30.0)
+    if len(live) != ASR_LIVE:
+        fail(f"grid asr: {len(live)} live windows, want {ASR_LIVE}")
+    real_rows = engine_mod.generate_rows
+    runs = {}
+    for width in (1, GRID_ASR_WIDTH):
+        toks = []
+
+        def recorded(*a, **k):
+            out = real_rows(*a, **k)
+            toks.append(out[0])
+            return out
+
+        engine_mod.generate_rows = recorded
+        sched = MeshScheduler(devices=[card] * width, slots=1)
+        hold = sched.admit()         # hold the card until every window is in
+        hold.acquire(timeout=30)
+        engine = engine_mod.AsrEngine(assets, scheduler=sched,
+                                      batch_windows=GRID_ASR_BATCH, tick_s=0.0)
+        t0 = time.perf_counter()
+        try:
+            lang = engine.detect_language(windows[live[0]][1])
+            h = engine.begin_job("grid", language=lang,
+                                 max_new=GRID_ASR_MAX_NEW, beam=1)
+            for i in live:
+                h.submit(i, windows[i][0], windows[i][1])
+            hold.close()
+            cues = sorted((i, [(c.start_s, c.end_s, c.text) for c in cs])
+                          for i, cs, _ in h.results())
+            h.close()
+        finally:
+            hold.close()
+            engine.close()
+            engine_mod.generate_rows = real_rows
+        runs[width] = {"tokens": np.concatenate(toks),
+                       "rows": [b["rows"] for b in engine.batch_log],
+                       "cues": cues, "s": round(time.perf_counter() - t0, 3)}
+    one, wide = runs[1], runs[GRID_ASR_WIDTH]
+    if not np.array_equal(one["tokens"], wide["tokens"]) \
+            or one["cues"] != wide["cues"]:
+        fail(f"grid asr: tokens on a {GRID_ASR_WIDTH}-wide lease differ from "
+             "the 1-wide run's")
+    if any(r % GRID_ASR_WIDTH for r in wide["rows"]):
+        fail(f"grid asr: rows {wide['rows']} not a multiple of "
+             f"{GRID_ASR_WIDTH}")
+    if torch.backends.cuda.matmul.allow_tf32 or torch.backends.cudnn.allow_tf32:
+        fail("grid asr: TF32 is on")
+    return {"windows": len(live), "rows_1": one["rows"],
+            f"rows_{GRID_ASR_WIDTH}": wide["rows"],
+            "tokens_shape": list(one["tokens"].shape),
+            "tokens_equal": True, "s_1": one["s"],
+            f"s_{GRID_ASR_WIDTH}": wide["s"]}
+
+
+def _grid_hold(seen: dict) -> dict:
+    """The kernel against its plain version at every (shape, frame count)
+    the grid phase called it with, on seeded random planes with the
+    matrices the path used."""
+    from vlog_tpu_torch.ops import fused_resize
+    from vlog_tpu_torch.ops.resize import apply_resize_matrices
+
+    gen = torch.Generator(device="cuda").manual_seed(2468)
+    saved = fused_resize.launches
+    held = {}
+    for (src, dst, n), (a_h, a_w) in sorted(seen.items()):
+        x = torch.randint(0, 256, (n,) + src, device="cuda", generator=gen,
+                          dtype=torch.uint8)
+        held[f"{src[0]}x{src[1]}->{dst[0]}x{dst[1]} n={n}"] = list(
+            _held_to_plain(fused_resize.fused_resize_plane(x, a_h, a_w),
+                           apply_resize_matrices(x, a_h, a_w),
+                           f"grid: kernel at {src}->{dst}, n={n}"))
+    fused_resize.launches = saved       # comparison launches do not count
+    return held
+
+
+def phase_grid(work: Path, sources: dict) -> int:
+    """The (data x rung) grid on one card as GRID_WIDTH logical devices:
+    the slice's H.264 run on a 1x4 grid, the hevc phase's run on 2x2 and
+    4x1 grids (trees byte-identical to those phases'), the ASR engine on
+    a 2-wide lease, and the dry run (its PSNR against a CPU run)."""
+    from vlog_tpu_torch.backends import get_backend
+    from vlog_tpu_torch.backends.torch_backend import TorchBackend
+    from vlog_tpu_torch.media.probe import get_video_info
+    from vlog_tpu_torch.ops import fused_resize
+    from vlog_tpu_torch.parallel import dryrun
+    from vlog_tpu_torch.worker import process_video
+
+    card = torch.device("cuda", 0)
+    devices = [card] * GRID_WIDTH
+    # the CPU dry run (the PSNR reference) runs beside the card's parts
+    cpu_code = ("import json, torch; torch.set_num_threads(4); "
+                "from vlog_tpu_torch.parallel import dryrun; "
+                f"dryrun.run({GRID_WIDTH}, devices=['cpu'] * {GRID_WIDTH}, "
+                f"iters={GRID_DRYRUN_ITERS})")
+    cpu_env = {**os.environ, "CUDA_VISIBLE_DEVICES": ""}
+    cpu_proc = subprocess.Popen([sys.executable, "-c", cpu_code], cwd=ROOT,
+                                env=cpu_env, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+    seen: dict = {}
+    real_plane = fused_resize.fused_resize_plane
+
+    def recording_plane(plane, a_h, a_w):
+        if plane.device.type == "cuda":
+            n = int(np.prod(plane.shape[:-2]))
+            seen.setdefault((tuple(plane.shape[-2:]), (a_h.shape[0],
+                                                       a_w.shape[0]), n),
+                            (a_h, a_w))
+        return real_plane(plane, a_h, a_w)
+
+    fused_resize.fused_resize_plane = recording_plane
+    report: dict = {}
+    total = 0
+    try:
+        # -- H.264: the slice's default plan on a 1x4 grid ---------------
+        src = sources[SLICE_FRAMES]
+        backend = TorchBackend(device="cuda")
+        plan = backend.plan(get_video_info(src), out_dir=work / "grid_h264")
+        rungs_spec = tuple((r.name, r.height, r.width, r.qp)
+                           for r in plan.rungs)
+        fused_resize.launches = 0
+        t0 = time.perf_counter()
+        res, shape = _under_lease(devices, GRID_H264_SPEC, backend.run, plan)
+        wall = time.perf_counter() - t0
+        launches = fused_resize.launches
+        want = _grid_launches(rungs_spec, shape) + 3 * fused_resize.LAUNCHES_PER_CALL
+        if shape != "1x4" or launches != want:
+            fail(f"grid h264: shape {shape}, {launches} launches; want 1x4, "
+                 f"{want}")
+        diff = _tree_diff(_tree_files(work / "slice"),
+                          _tree_files(work / "grid_h264"))
+        if diff:
+            fail(f"grid h264: the 1x4 tree differs from the slice's: {diff}")
+        _check_stage_s("grid h264", res.stage_s)
+        report["h264"] = {"shape": shape, "launches": launches,
+                          "wall_s": round(wall, 3),
+                          "files_equal_to_slice": len(
+                              _tree_files(work / "slice"))}
+        total += launches
+
+        # -- HEVC: the hevc phase's run on 2x2 and 4x1 grids --------------
+        hsrc = sources[FRAMES]
+        hevc_ref = _tree_files(work / "hevc")
+        hplan = backend.plan(get_video_info(hsrc), out_dir=work / "unused",
+                             codec="h265")
+        rungs_spec = tuple((r.name, r.height, r.width, r.qp)
+                           for r in hplan.rungs)
+        report["hevc"] = {}
+        for spec in GRID_HEVC_SPECS:
+            out = work / f"grid_hevc_{spec.replace(':', '').replace(',', '_')}"
+            fused_resize.launches = 0
+            t0 = time.perf_counter()
+            res, shape = _under_lease(devices, spec, process_video, hsrc, out,
+                                      backend=get_backend("torch"),
+                                      codec="h265")
+            wall = time.perf_counter() - t0
+            launches = fused_resize.launches
+            want = _grid_launches(rungs_spec, shape) \
+                + 3 * fused_resize.LAUNCHES_PER_CALL
+            if launches != want:
+                fail(f"grid hevc {shape}: {launches} launches, want {want}")
+            diff = _tree_diff(hevc_ref, _tree_files(out))
+            if diff:
+                fail(f"grid hevc {shape}: the tree differs from the hevc "
+                     f"phase's: {diff}")
+            report["hevc"][shape] = {
+                "launches": launches, "wall_s": round(wall, 3),
+                "run_wall_s": round(res.run.wall_s, 3),
+                "compute_wait_s": res.run.stage_s.get("compute_wait_s"),
+                "pad_frames": res.run.stage_s.get("pad_frames"),
+                "files_equal_to_hevc": len(hevc_ref)}
+            total += launches
+
+        # -- ASR: the engine on a 2-wide lease ------------------------------
+        fused_resize.launches = 0
+        report["asr"] = _grid_asr(work, card)
+        if fused_resize.launches:
+            fail(f"grid asr: {fused_resize.launches} resize launches")
+
+        # -- the dry run on four logical devices ----------------------------
+        fused_resize.launches = 0
+        t0 = time.perf_counter()
+        rec = dryrun.run(GRID_WIDTH, devices=devices,
+                         records=work / "grid_records.json",
+                         iters=GRID_DRYRUN_ITERS)
+        dry_s = time.perf_counter() - t0
+        total += fused_resize.launches
+        records = json.loads((work / "grid_records.json").read_text())
+        if not records or any(r["config"]["distinct_devices"] != 1
+                              for r in records):
+            fail(f"grid dryrun: records {records[:2]}")
+        try:
+            out_s, err_s = cpu_proc.communicate(timeout=GRID_CPU_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            fail("grid dryrun: the CPU run did not finish")
+        if cpu_proc.returncode != 0:
+            fail(f"grid dryrun: the CPU run failed: {err_s[-2000:]}")
+        cpu_rec = json.loads(out_s.strip().splitlines()[-1])
+        for name, psnr in rec["psnr"].items():
+            ref = cpu_rec["psnr"][name]
+            if not math.isclose(psnr, ref, rel_tol=GRID_PSNR_RTOL):
+                fail(f"grid dryrun: PSNR {name} {psnr} on the card, {ref} on "
+                     "the CPU")
+        report["dryrun"] = {"s": round(dry_s, 3), "launches":
+                            fused_resize.launches, "psnr": rec["psnr"],
+                            "psnr_cpu": cpu_rec["psnr"],
+                            "records": len(records)}
+        log(f"grid dryrun shape_fps (4 logical devices on one card, not "
+            f"multi-card scaling): {json.dumps(rec['shape_fps'])}; sched "
+            f"{json.dumps(rec['sched'])}")
+    finally:
+        fused_resize.fused_resize_plane = real_plane
+        if cpu_proc.poll() is None:
+            cpu_proc.kill()
+            cpu_proc.communicate()
+    counts = sorted({n for (_, _, n) in seen})
+    report["frames_per_call"] = counts
+    report["held"] = _grid_hold(seen)
+    log("grid: " + json.dumps(report))
+    log(f"grid: kernel launches {total}; frames per call {counts}")
+    return total
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         log("chip_smoke: CUDA is not available; nothing was run")
@@ -3690,6 +4033,7 @@ def main() -> int:
     launches["serve"] = timed("serve", phase_serve, work, sources)
     timed("asr", phase_asr, work)       # fails on any resize launch
     launches["asr"] = 0
+    launches["grid"] = timed("grid", phase_grid, work, sources)
     shutil.rmtree(work, ignore_errors=True)
     timed("breakdown", phase_breakdown)
     log("launches by phase " + json.dumps(launches))

@@ -436,22 +436,37 @@ def test_job_cancel_wakes_its_waiter_and_drops_windows(assets):
 
 
 def test_engine_under_a_wider_lease_fails_the_batch(assets):
-    """A lease of two devices: batches sharded over several devices are
-    not ported, so the batch fails (the jobs see it) and the engine
-    keeps serving; the lease still goes back at idle."""
-    sched = _sched(devices=["cpu:a", "cpu:b"])
+    """A lease of two devices: the batch's rows (one window, bucketed to 2
+    rows) split over both devices, each row decoded by the replica on its
+    device (two distinct device objects: one replica beside the assets);
+    the tokens equal a one-device engine's, and the lease goes back at
+    idle."""
+    import torch
+
+    devs = [torch.device("cpu", 0), torch.device("cpu", 1)]
+    solo = AsrEngine(assets, batch_windows=4, tick_s=0.0)
+    try:
+        h = solo.begin_job("solo", language="en", max_new=8, beam=1)
+        h.submit(0, 0.0, _tone(2.0))
+        want = list(h.results())
+        h.close()
+    finally:
+        solo.close()
+    sched = _sched(devices=devs)
     engine = AsrEngine(assets, scheduler=sched, batch_windows=4, tick_s=0.0)
     try:
         h = engine.begin_job("wide", language="en", max_new=8, beam=1)
         h.submit(0, 0.0, _tone(2.0))
-        with pytest.raises(AsrJobError, match="item 14"):
-            list(h.results())
+        got = list(h.results())
         h.close()
         assert _wait_until(lambda: not engine.active())
         assert sched.capacity() == 1
     finally:
         engine.close()
-    assert engine.batch_log == []
+    assert [(i, c) for i, c, _ in got] == [(i, c) for i, c, _ in want]
+    assert [b["rows"] for b in engine.batch_log] == [2]
+    assert [b["rows"] for b in solo.batch_log] == [1]
+    assert set(assets.replicas) == set(devs)
 
 
 def test_get_engine_keys_on_the_scheduler(tiny_model_dir):

@@ -753,3 +753,48 @@ def test_compute_stream_reused_across_runs(cuda):
         allocated.append(torch.cuda.memory_allocated())
     assert streams[0] == streams[1] == streams[2] != torch.cuda.default_stream()
     assert allocated[1] == allocated[2] <= allocated[0]
+
+
+def test_start_d2h_assembles_shards_of_a_repeated_card(cuda):
+    """A grid's outputs on one card repeated (``[cuda] * 2``): a rung of
+    two shards and a plain tensor, queued inside ``dispatch_streams``;
+    one compute event and one copy stream for the card, and the pull
+    concatenates the shards in data order."""
+    from vlog_tpu_torch.parallel.executor import dispatch_streams, start_d2h
+    from vlog_tpu_torch.parallel.mesh import Sharded
+
+    x = torch.arange(1 << 12, dtype=torch.int32, device=cuda)
+    with dispatch_streams([cuda, cuda]):
+        tree = {"r": {"a": Sharded([x[:2048] * 2, x[2048:] * 2]),
+                      "b": x + 1}}
+        d2h = start_d2h(tree)
+    d2h.wait_compute()
+    host = d2h.host("r")
+    np.testing.assert_array_equal(host["a"], np.arange(1 << 12) * 2)
+    np.testing.assert_array_equal(host["b"], np.arange(1 << 12) + 1)
+    assert len(d2h.streams) == 1
+
+
+def test_grid_program_on_a_repeated_card_equals_one_device(cuda):  # slowlane-ok: 96x128, 8 frames, card only
+    """The intra ladder (96x128, four rungs) on a 2x2 grid over the card
+    repeated four times: the same levels as the one-device program."""
+    from vlog_tpu_torch.parallel import ladder as tladder
+    from vlog_tpu_torch.parallel.executor import to_host
+    from vlog_tpu_torch.parallel.mesh import MeshShape, rung_grid
+
+    rungs = (("96p", 96, 128, 26), ("64p", 64, 96, 28), ("48p", 48, 64, 29),
+             ("32p", 32, 48, 30))
+    rng = np.random.default_rng(5)
+    y = rng.integers(0, 256, (8, 96, 128), dtype=np.uint8)
+    u = rng.integers(0, 256, (8, 48, 64), dtype=np.uint8)
+    v = rng.integers(0, 256, (8, 48, 64), dtype=np.uint8)
+    q = {name: np.full(8, qp, np.int32) for name, _, _, qp in rungs}
+    grid = rung_grid(rungs, MeshShape(2, 2), [cuda] * 4)
+    got = to_host(tladder.ladder_encode_grid(rungs, 96, 128, grid,
+                                             device=cuda).dispatch(y, u, v, q))
+    want = to_host(tladder.ladder_encode_grid(rungs, 96, 128, None,
+                                              device=cuda).dispatch(y, u, v, q))
+    for name in want:
+        for k in want[name]:
+            np.testing.assert_array_equal(got[name][k], want[name][k],
+                                          err_msg=f"{name}/{k}")

@@ -8,8 +8,9 @@ port's own job plane and schema. Then the port-only paths: a cooperative
 cancel of a real multi-dispatch run leaves no executor thread; a
 ``device.fault`` attempt quarantines the lease's device, is refunded and
 the probe loop reinstates the device; a failing probe with every device
-quarantined takes the restart path (ROADMAP Queue C item 15); a lease
-wider than one device raises (ROADMAP Queue A item 14).
+quarantined takes the restart path (ROADMAP Queue C item 15); a lone
+job under a two-device scheduler runs on the full two-device lease (a
+2x1 grid) and writes the one-device tree.
 
 The reference daemon against the port's on the same sources (the trees
 and rows) is in ``tests/test_torch_daemon_parity.py``.
@@ -349,10 +350,13 @@ def test_daemon_single_job_under_scheduler_gets_full_mesh(run, tdb, tmp_path,
 
 
 def test_wide_lease_raises_not_implemented(run, tdb, tmp_path, video_job):
-    """No fallback: a lone job under a two-device scheduler leases both
-    devices, and the port refuses a dispatch over several devices
-    (ROADMAP Queue A item 14) instead of quietly using one."""
-    video, job_id, _ = video_job
+    """A lone job under a two-device scheduler leases both devices (the
+    work-conserving full mesh) and runs the ladder as the lease's 2x1
+    grid: the job completes, its span carries the width and the shape,
+    and the tree equals a scheduler-less run's (the journal aside)."""
+    from vlog_tpu_torch.worker.pipeline import process_video
+
+    video, job_id, src = video_job
     sched = MeshScheduler(devices=["cpu:0", "cpu:1"], slots=2)
     daemon = make_daemon(tdb, tmp_path, scheduler=sched)
 
@@ -362,9 +366,27 @@ def test_wide_lease_raises_not_implemented(run, tdb, tmp_path, video_job):
 
     run(go())
     job = run(tdb.fetch_one("SELECT * FROM jobs WHERE id=:id", {"id": job_id}))
-    assert job["completed_at"] is None
-    assert "NotImplementedError" in job["error"] and "item 14" in job["error"]
+    assert job["completed_at"] is not None, job["error"]
+    assert run(vids.get_video(tdb, video["id"]))["status"] == "ready"
+    span = run(tdb.fetch_one(
+        "SELECT * FROM job_spans WHERE job_id=:j AND name=:n",
+        {"j": job_id, "n": "worker.transcode"}))
+    attrs = json.loads(span["attributes"] or "{}")
+    assert attrs.get("mesh.slot") == "full" and attrs.get("mesh.width") == 2
+    assert attrs.get("mesh.shape") == "2x1"
     assert sched.capacity() == 2
+    tree = next(p.parent for p in (tmp_path / "videos").rglob("master.m3u8"))
+    solo = tmp_path / "solo"
+    process_video(src, solo, backend=TorchBackend(device="cpu"),
+                  device="cpu")
+    skip = {"rc_journal.jsonl", "outputs.json"}
+    segments = 0
+    for f in sorted(solo.rglob("*")):
+        rel = f.relative_to(solo)
+        if f.is_file() and f.name not in skip and (tree / rel).exists():
+            assert (tree / rel).read_bytes() == f.read_bytes(), rel
+            segments += f.suffix == ".m4s"
+    assert segments >= 1
 
 
 def test_daemon_refuses_cuda_without_cuda(tdb, tmp_path):

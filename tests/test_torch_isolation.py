@@ -8,7 +8,8 @@ and by reading every import statement in their sources. The walk covers
 the HTTP plane's modules (the Worker API server, auth, the remote
 worker, the SLO plane, the GC) and the serving plane's (the Postgres
 facade and its wire-protocol double, the delivery plane, the public API
-and its UI).
+and its UI) and the multi-device grid's (the mesh, the ladder grids and
+the dry run).
 """
 
 from __future__ import annotations
@@ -31,7 +32,11 @@ HTTP_PLANE = ("vlog_tpu_torch.api.worker_api", "vlog_tpu_torch.api.auth",
               "vlog_tpu_torch.delivery.gossip", "vlog_tpu_torch.delivery.http",
               "vlog_tpu_torch.delivery.l2", "vlog_tpu_torch.delivery.plane",
               "vlog_tpu_torch.delivery.ring", "vlog_tpu_torch.api.public_api",
-              "vlog_tpu_torch.api.pagination", "vlog_tpu_torch.web")
+              "vlog_tpu_torch.api.pagination", "vlog_tpu_torch.web",
+              # the (data x rung) grid and its dry run
+              "vlog_tpu_torch.parallel.mesh", "vlog_tpu_torch.parallel.ladder",
+              "vlog_tpu_torch.parallel.hevc_ladder",
+              "vlog_tpu_torch.parallel.dryrun")
 
 _BLOCKED_IMPORT_SCRIPT = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys

@@ -17,8 +17,9 @@ control's feedback lag is the depth, so under it depths may differ).
   raises, no executor or prefetch thread is left, and the resumed run
   writes the uninterrupted tree.
 - Under a port slot lease one device wide the run executes on the
-  lease's device (here the CPU) and writes the same tree; a lease of two
-  devices raises ``NotImplementedError`` before anything is written.
+  lease's device (here the CPU) and writes the same tree; under a lease
+  of two devices (the default ``VLOG_TPU_MESH``: a 2x1 grid) the run
+  splits its chains over both and writes the same tree too.
 Tolerance: byte-identical files (the journal's ``cost`` within rtol
 1e-5, ``tests/test_torch_backend.py::assert_journals_match``).
 """
@@ -209,16 +210,28 @@ def test_width_one_lease_runs_on_its_device_with_the_same_tree(
 
 
 @pytest.mark.parametrize("codec", ["h264", "h265"])
-def test_wider_lease_raises_before_writing(src40, tmp_path, codec):
+def test_wider_lease_raises_before_writing(src40, tmp_path, codec,
+                                           depth_of):
+    """A lease of two devices runs the ladder as its 2x1 grid (chains
+    split over both) and writes the one-device tree; the journal, shaped
+    by the grid's batch, aside (H.264: 10-frame chains, 2 per dispatch
+    on the grid, 1 without)."""
     from vlog_tpu_torch.parallel.scheduler import MeshScheduler
 
-    sched = MeshScheduler(devices=["dev0", "dev1"], slots=1)
+    depth_of(2)
+    _torch_run(src40, tmp_path / "plain", codec=codec)
+    sched = MeshScheduler(devices=[torch.device("cpu", 0),
+                                   torch.device("cpu", 1)], slots=1)
     ticket = sched.admit()
-    with ticket.acquire():
-        with pytest.raises(NotImplementedError, match="item 14"):
-            _torch_run(src40, tmp_path / "wide", codec=codec)
+    with ticket.acquire() as lease:
+        res = _torch_run(src40, tmp_path / "wide", codec=codec)
+        assert lease.shape == "2x1"
     ticket.close()
-    assert not (tmp_path / "wide").exists()
+    assert res.frames_processed == 40 and sched.capacity() == 1
+    plain, wide = _files(tmp_path / "plain"), _files(tmp_path / "wide")
+    plain.pop(JOURNAL, None)
+    wide.pop(JOURNAL, None)
+    assert wide == plain
 
 
 def test_process_video_under_a_lease(src40, tmp_path):

@@ -422,13 +422,23 @@ def test_device_for_run_follows_the_lease():
         assert tsched.mesh_for_run() is None
     t.close()
     assert tsched.host_pool_for_run() is None
-    wide = tsched.MeshScheduler(devices=["a", "b"], slots=1)
+    # a wide lease: the run's first device and the lease's grid (the
+    # default VLOG_TPU_MESH "data:-1": one column, two data devices)
+    devs = [torch.device("cpu", 0), torch.device("cpu", 1)]
+    wide = tsched.MeshScheduler(devices=devs, slots=1)
     t = wide.admit()
-    with t.acquire():
-        with pytest.raises(NotImplementedError, match="item 14"):
-            tsched.device_for_run(cpu, LADDERS["4"])
+    with t.acquire() as lease:
+        assert tsched.device_for_run(cpu, LADDERS["4"]) == devs[0]
+        assert lease.shape == "2x1"
+        dev, grid = tsched.placement_for_run(cpu, LADDERS["4"], 1)
+        assert dev == devs[0] and grid.label == "2x1"
+        assert [c.names for c in grid.columns] == [
+            tuple(r[0] for r in LADDERS["4"])]
+        assert grid.columns[0].mesh.devices.tolist() == devs
+        # a ladder-less caller gets the first device and no grid
+        assert tsched.placement_for_run(cpu) == (devs[0], None)
         mesh = tsched.mesh_for_run()
-        assert mesh.devices.tolist() == ["a", "b"] and mesh.axis_names == ("data",)
+        assert mesh.devices.tolist() == devs and mesh.axis_names == ("data",)
     t.close()
     s.host_pool().shutdown()
 

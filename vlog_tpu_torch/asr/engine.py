@@ -18,12 +18,17 @@ Mesh integration: the ENGINE owns the slot demand, not the jobs. Given a
 queue has work, acquires the lease (``acquire(cancel=...)``: closing the
 engine aborts a blocked wait) and gives it back when the queue drains,
 or at a tick boundary when it holds the full mesh and other demand is
-pending. A batch runs on the lease's device, which must be the assets'
-device; a lease wider than one device fails the batch with
-``NotImplementedError`` (a batch sharded over several CUDA devices is
-not ported, ROADMAP Queue A item 14). Each batch feeds the runtime
-metrics (obs/metrics.py): batches, windows, occupancy, pad waste,
-windows per second, queue waits and ``vlog_device_seconds{plane="asr"}``.
+pending (the reference's renegotiation). A batch runs on the lease's
+devices: its rows (a power-of-two bucket rounded up to the lease's
+width) split into one block per device, in row order, each block
+decoded by a Whisper replica on its device (``load.replica_on``: one
+per distinct device, kept beside the assets) and the tokens
+concatenated in row order; row independence makes the tokens the same
+at every width. With no scheduler at all, a generic CUDA engine spreads
+over every visible card (the reference's ad-hoc mesh). Each batch feeds
+the runtime metrics (obs/metrics.py): batches, windows, occupancy, pad
+waste, windows per second, queue waits and
+``vlog_device_seconds{plane="asr"}``.
 """
 
 from __future__ import annotations
@@ -37,7 +42,7 @@ import torch
 
 from vlog_tpu_torch import config
 from vlog_tpu_torch.asr import mel as melmod
-from vlog_tpu_torch.asr.load import WhisperAssets, load_whisper
+from vlog_tpu_torch.asr.load import WhisperAssets, load_whisper, replica_on
 from vlog_tpu_torch.asr.queue import BatchKey, WindowQueue, WorkItem
 from vlog_tpu_torch.asr.vtt import Cue
 from vlog_tpu_torch.obs.metrics import runtime
@@ -264,13 +269,29 @@ class AsrEngine:
         finally:
             _release()
 
-    def _bucket_rows(self, n: int) -> int:
-        """Smallest power-of-two bucket >= n: every batch runs at one of a
-        handful of shapes."""
+    def _bucket_rows(self, n: int, width: int) -> int:
+        """Smallest power-of-two bucket >= n (every batch runs at one of a
+        handful of shapes), rounded up to a multiple of the mesh width so
+        rows split evenly."""
         rows = 1
         while rows < n:
             rows *= 2
+        if width > 1:
+            rows += (-rows) % width
         return rows
+
+    def _batch_devices(self, lease) -> list:
+        """The devices a batch's rows split over: the lease's; with no
+        scheduler anywhere, every visible card for an engine on CUDA
+        when there are several (the reference's ad-hoc full-device
+        mesh); else the engine's own device."""
+        if lease is not None:
+            return [torch.device(d) for d in lease.devices]
+        if (self.scheduler is None and self.device.type == "cuda"
+                and torch.cuda.device_count() > 1):
+            return [torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())]
+        return [self.device]
 
     def _tick(self, key: BatchKey, items: list[WorkItem], lease=None) -> None:
         t0 = time.monotonic()
@@ -278,29 +299,20 @@ class AsrEngine:
         try:
             failpoints.hit("asr.batch")
             n = len(items)
-            if lease is not None:
-                if lease.width > 1:
-                    raise NotImplementedError(
-                        f"a {lease.width}-device lease: batches sharded over "
-                        "several devices are not ported (ROADMAP Queue A "
-                        "item 14)")
-                if torch.device(lease.devices[0]) != self.device:
-                    raise ValueError(
-                        f"lease device {lease.devices[0]} is not the "
-                        f"engine's device {self.device}")
-            rows = self._bucket_rows(n)
+            devices = self._batch_devices(lease)
+            rows = self._bucket_rows(n, len(devices))
             stack = [melmod.pad_or_trim(it.samples.astype(np.float32))
                      for it in items]
             stack += [np.zeros_like(stack[0])] * (rows - n)
-            batch = np.stack(stack)
+            # the whole batch's log-mel on the first device, then split
             feats = melmod.log_mel_spectrogram(
-                batch, n_mels=self.assets.cfg.num_mel_bins,
-                device=self.device)
-            from vlog_tpu_torch.asr.decode import generate_batch, parse_segments
+                np.stack(stack), n_mels=self.assets.cfg.num_mel_bins,
+                device=replica_on(self.assets, devices[0]).model.device)
+            from vlog_tpu_torch.asr.decode import parse_segments
 
-            toks, no_speech = generate_batch(
-                self.assets, feats, language=key.language, task=key.task,
-                max_new=key.max_new, beam=key.beam)
+            toks, no_speech = generate_rows(
+                self.assets, feats, devices, language=key.language,
+                task=key.task, max_new=key.max_new, beam=key.beam)
             toks, no_speech = toks[:n], no_speech[:n]
             st = self.assets.tokens
             tokenizer = self.assets.tokenizer
@@ -366,6 +378,31 @@ class AsrEngine:
         now = time.monotonic()
         for it in items:
             m.asr_queue_wait.observe(max(0.0, now - it.enqueued_at))
+
+
+def generate_rows(assets: WhisperAssets, feats: torch.Tensor, devices, *,
+                  language: str, task: str = "transcribe",
+                  max_new: int | None = None, beam: int = 1):
+    """Decode a batch of log-mel windows (rows divisible by the number of
+    ``devices``) -> (tokens, no_speech_prob) as numpy, in row order: the
+    rows split into one contiguous block per device (a device may
+    repeat), each decoded by the assets' replica there."""
+    from vlog_tpu_torch.asr.decode import generate_batch
+
+    width = len(devices)
+    if feats.shape[0] % width:
+        raise ValueError(f"{feats.shape[0]} rows do not split over "
+                         f"{width} devices")
+    k = feats.shape[0] // width
+    toks, no_speech = [], []
+    for i, d in enumerate(devices):
+        rep = replica_on(assets, d)
+        t, nsp = generate_batch(
+            rep, feats[i * k:(i + 1) * k].to(rep.model.device),
+            language=language, task=task, max_new=max_new, beam=beam)
+        toks.append(t)
+        no_speech.append(nsp)
+    return np.concatenate(toks), np.concatenate(no_speech)
 
 
 # Per-process engine singleton -------------------------------------------

@@ -15,6 +15,8 @@ same bytes). Nothing is fetched.
 
 from __future__ import annotations
 
+import copy
+import dataclasses
 import json
 import re
 import threading
@@ -62,6 +64,34 @@ class WhisperAssets:
     tokenizer: "ByteLevelDecoder"
     tokens: SpecialTokens
     model_name: str
+    # device -> these weights on another device (:func:`replica_on`)
+    replicas: dict = field(default_factory=dict, repr=False,
+                           compare=False)   # guarded-by: _replica_lock
+
+
+_replica_lock = threading.Lock()        # lock-order: 24
+
+
+def replica_on(assets: WhisperAssets, device) -> WhisperAssets:
+    """``assets`` with its model on ``device``: the assets themselves on
+    their own device, else a replica (a copy of the weights moved there),
+    made once per distinct device and kept beside the assets. Each
+    replica decodes with TF32 off like the original (``strict_fp32``)."""
+    from vlog_tpu_torch.device import resolve_device, strict_fp32
+
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    if dev == assets.model.device:
+        return assets
+    with _replica_lock:
+        rep = assets.replicas.get(dev)
+        if rep is None:
+            strict_fp32()
+            model = copy.deepcopy(assets.model).to(dev)
+            rep = assets.replicas[dev] = dataclasses.replace(
+                assets, model=model, replicas={})
+    return rep
 
 
 # --------------------------------------------------------------------------

@@ -8,8 +8,12 @@ on the run's compute stream -> asynchronous device-to-host copy of
 int16 levels and MVs -> host CABAC (native, one frame per pool thread)
 in one consumer thread per rung -> CMAF segments with hvc1 sample
 entries; the stages overlap through the H.264 path's
-``PipelineExecutor`` (parallel/executor.py), on the lease's device
-under the mesh scheduler. The tree has the H.264 path's shape
+``PipelineExecutor`` (parallel/executor.py). Under the mesh scheduler
+the ladder runs on the lease's (data x rung) grid
+(``hevc_ladder.py::hevc_chain_ladder_grid``: rung columns, each
+column's chains split over its data devices) and decode on the lease's
+first device; the batch math keys off the grid's data width only. The
+tree has the H.264 path's shape
 (playlists, DASH manifest, thumbnail), so players and resume work
 unchanged. CMAF only: MPEG-TS carries H.264.
 
@@ -19,8 +23,9 @@ batch k + PIPELINE_DEPTH, and right after each batch while a controller
 is hunting. A resumed run restarts at the first segment any rung is
 missing, with cold controllers (the HEVC path keeps no journal) and the
 original thumbnail. A dispatch encodes only the chains that hold real
-frames, and a lone chain only its real frames; the reference encodes
-the replicated tail too and drops it, so the bytes are the same.
+frames (padded with copies of the last frame to the data width), and a
+lone chain only its real frames; the reference encodes the replicated
+tail too and drops it, so the bytes are the same.
 """
 
 from __future__ import annotations
@@ -41,10 +46,10 @@ from vlog_tpu_torch.parallel.compile_cache import ensure_compile_cache
 from vlog_tpu_torch.parallel.executor import (DecodePrefetch,
                                               LaggedRateControl,
                                               PipelineExecutor,
-                                              dispatch_stream, upload)
-from vlog_tpu_torch.parallel.hevc_ladder import hevc_chain_ladder_program
-from vlog_tpu_torch.parallel.scheduler import (device_for_run,
-                                               host_pool_for_run)
+                                              dispatch_streams)
+from vlog_tpu_torch.parallel.hevc_ladder import hevc_chain_ladder_grid
+from vlog_tpu_torch.parallel.scheduler import (host_pool_for_run,
+                                               placement_for_run)
 from vlog_tpu_torch.utils.fsio import atomic_write_bytes, prepare_init_segment
 
 _KEYS = ("i_luma", "i_cb", "i_cr", "p_luma", "p_cb", "p_cr", "mv", "sse_y",
@@ -62,10 +67,14 @@ def run_hevc(backend, plan, progress_cb, resume: bool, t0: float) -> RunResult:
     clen = max(1, plan.gop_len)
     tag = f"hevc:partitions={int(config.HEVC_PARTITIONS)}:gop={plan.gop_len}"
     rungs_spec = tuple((r.name, r.height, r.width, r.qp) for r in plan.rungs)
-    chains_per = max(1, -(-plan.frame_batch // clen))
+    hint = max(1, -(-plan.frame_batch // clen))
+    # the lease's first device and grid under the scheduler, else the
+    # backend's device (every visible card for a generic "cuda")
+    dev, grid = placement_for_run(backend.device, rungs_spec, hint)
+    # batch math keys off the grid's data width only
+    data = grid.data if grid is not None else 1
+    chains_per = max(data, hint + (-hint) % data)
     batch_n = clen * chains_per
-    # the lease's device under the scheduler, else the backend's
-    dev = device_for_run(backend.device, rungs_spec, chains_per)
     ensure_compile_cache()
     out.mkdir(parents=True, exist_ok=True)
 
@@ -110,10 +119,10 @@ def run_hevc(backend, plan, progress_cb, resume: bool, t0: float) -> RunResult:
             # a resumed run keeps the original first-frame thumbnail
             thumb_path = str(out / THUMBNAIL_NAME)
 
-        fn, mats = hevc_chain_ladder_program(
+        prog = hevc_chain_ladder_grid(
             rungs_spec, plan.source.height, plan.source.width,
-            search=config.MOTION_SEARCH_RADIUS, deblock=config.HEVC_DEBLOCK,
-            device=dev)
+            search=config.MOTION_SEARCH_RADIUS, grid=grid,
+            deblock=config.HEVC_DEBLOCK, device=dev)
         controllers = {r.name: RateController(target_bps=r.video_bitrate,
                                               fps=fps, init_qp=r.qp)
                        for r in plan.rungs}
@@ -145,6 +154,8 @@ def run_hevc(backend, plan, progress_cb, resume: bool, t0: float) -> RunResult:
             batch_bytes, n_frames, cost_sum, rc_qs = 0, 0, 0.0, []
             for ci in range(host["i_luma"].shape[0]):
                 keep = min(clen, n_real - ci * clen)
+                if keep <= 0:           # a chain padding the data width
+                    break
                 # attribute to the plan (outer-loop) working point; the
                 # program applies the I frame's -2 anchor itself
                 rc_qs.append(plan_q[ci, :keep])
@@ -199,7 +210,7 @@ def run_hevc(backend, plan, progress_cb, resume: bool, t0: float) -> RunResult:
             # the reference's one-batch decode prefetch
             prefetch = DecodePrefetch(src, batch_n, start_frame, maxsize=1)
             batch_idx = 0
-            with dispatch_stream(dev):
+            with dispatch_streams(prog.devices):
                 while True:
                     td = time.perf_counter()
                     item = prefetch.get()
@@ -213,10 +224,12 @@ def run_hevc(backend, plan, progress_cb, resume: bool, t0: float) -> RunResult:
                         pipe.submit_aux(backend._write_thumbnail,
                                         *(p[0] for p in item), thumb_path,
                                         1280, dev)
-                    # only the chains holding real frames; a lone chain
-                    # only up to its last real frame
-                    n_chains = -(-n_real // clen)
-                    lead = (n_chains, clen if n_chains > 1 else n_real)
+                    # only the chains holding real frames (a lone chain
+                    # only up to its last real frame), padded to the
+                    # data width
+                    real = -(-n_real // clen)
+                    lead = (real + (-real) % data,
+                            clen if real > 1 else n_real)
                     n_disp = lead[0] * lead[1]
                     # backpressure before planning, then the lagged
                     # feedback: every depth plans the same QPs
@@ -224,18 +237,20 @@ def run_hevc(backend, plan, progress_cb, resume: bool, t0: float) -> RunResult:
                     rc.apply_upto(batch_idx - pipe.depth)
                     pipe.note_pad_waste(n_real, n_disp)
                     # tail: replicate the last frame, dropped after encode
-                    planes = [upload((np.concatenate(
+                    planes = [(np.concatenate(
                         [p, np.repeat(p[-1:], n_disp - n_real, 0)])
                         if n_disp > n_real else p)
-                        .reshape(lead + p.shape[1:]), dev)
-                        for p in item]
+                        .reshape(lead + p.shape[1:]) for p in item]
                     qps = {r.name: np.ascontiguousarray(
                                controllers[r.name].frame_qps(batch_n)
                                .reshape(chains_per, clen)[:lead[0], :lead[1]])
                            for r in plan.rungs}
-                    outs = fn(*planes, mats, qps,
-                              {r.name: controllers[r.name].device_rc_params()
-                               for r in plan.rungs})
+                    # each column stages the batch on its devices and
+                    # leaves its rungs' outputs there
+                    outs = prog.dispatch(
+                        *planes, qps,
+                        {r.name: controllers[r.name].device_rc_params()
+                         for r in plan.rungs})
                     pipe.submit({r.name: {k: outs[r.name][k] for k in _KEYS}
                                  for r in plan.rungs}, n_real, qps)
                     del outs, planes

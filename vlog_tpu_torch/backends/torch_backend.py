@@ -27,8 +27,15 @@ are in flight. The rate-control schedule is the JAX backend's:
 observations of batch k apply before dispatch of batch k + depth, and
 every observation applies right after a batch while a controller is
 hunting, so both backends plan the same QPs and write the same journal.
-Under the mesh scheduler a run executes on its lease's device (one
-device wide; a wider lease raises ``NotImplementedError``).
+Under the mesh scheduler a run executes on its lease: a lease one device
+wide runs the one-device program there; a wider one lays the ladder out
+as the lease's (data x rung) grid (``VLOG_TPU_MESH``; columns of rungs,
+each column's chains or frames split over its data devices,
+``parallel/ladder.py::GridProgram``), while decode and the thumbnail
+stay on the lease's first device. Batch sizes key off the grid's data
+width only (the reference's rule): whole chains per dispatch rounded up
+to the data width, or intra batches rounded up to it, so every grid
+whose data width divides the batch writes the same tree.
 ``RunResult.stage_s`` has the reference's keys: the busy seconds of
 ``decode_wait_s``, ``compute_wait_s``, ``device_pull_s``, ``entropy_s``
 and ``package_s``, ``pad_frames``, ``rung_<name>_s`` per rung, and the
@@ -88,12 +95,12 @@ from vlog_tpu_torch.parallel.compile_cache import ensure_compile_cache
 from vlog_tpu_torch.parallel.executor import (DecodePrefetch,
                                               LaggedRateControl,
                                               PipelineExecutor,
-                                              dispatch_stream, upload)
-from vlog_tpu_torch.parallel.ladder import (ladder_chain_program,
-                                            ladder_encode_program,
+                                              dispatch_streams)
+from vlog_tpu_torch.parallel.ladder import (ladder_chain_grid,
+                                            ladder_encode_grid,
                                             ladder_matrices, mats_from_numpy)
-from vlog_tpu_torch.parallel.scheduler import (device_for_run,
-                                               host_pool_for_run)
+from vlog_tpu_torch.parallel.scheduler import (host_pool_for_run,
+                                               placement_for_run)
 from vlog_tpu_torch.utils import failpoints
 from vlog_tpu_torch.utils.fsio import (atomic_write_bytes, atomic_write_text,
                                        prepare_init_segment)
@@ -105,8 +112,9 @@ _INTRA_KEYS = ("luma_dc", "luma_ac", "chroma_dc", "chroma_ac", "sse_y")
 
 
 class TorchBackend:
-    """Runs the one-pass H.264 or HEVC ladder on one device (default
-    ``"cuda"``)."""
+    """Runs the one-pass H.264 or HEVC ladder on ``device`` (default
+    ``"cuda"``: every visible card without a lease), or on its slot
+    lease's devices under the mesh scheduler."""
 
     name = "torch"
 
@@ -197,11 +205,21 @@ class TorchBackend:
         rungs_spec = tuple((r.name, r.height, r.width, r.qp)
                            for r in plan.rungs)
         # whole chains per dispatch, enough for frame_batch frames
-        chains_per = max(1, -(-plan.frame_batch // clen))
-        batch_n = clen * chains_per if chain_mode else max(plan.frame_batch, 1)
-        # the lease's device under the scheduler, else the backend's
-        dev = device_for_run(self.device, rungs_spec,
-                             chains_per if chain_mode else batch_n)
+        hint = max(1, -(-plan.frame_batch // clen))
+        # the lease's first device and grid under the scheduler, else the
+        # backend's device (every visible card for a generic "cuda")
+        dev, grid = placement_for_run(
+            self.device, rungs_spec,
+            hint if chain_mode else plan.frame_batch)
+        # batch math keys off the grid's data width only, so every shape
+        # whose data width divides the batch stages the same batches
+        data = grid.data if grid is not None else 1
+        chains_per = max(data, hint + (-hint) % data)
+        if chain_mode:
+            batch_n = clen * chains_per
+        else:
+            batch_n = max(plan.frame_batch, data)
+            batch_n += (-batch_n) % data
         ensure_compile_cache()
         out.mkdir(parents=True, exist_ok=True)
 
@@ -248,13 +266,13 @@ class TorchBackend:
 
             src_h, src_w = plan.source.height, plan.source.width
             if chain_mode:
-                fn, mats = ladder_chain_program(
+                prog = ladder_chain_grid(
                     rungs_spec, src_h, src_w,
-                    search=config.MOTION_SEARCH_RADIUS, deblock=deblock,
-                    device=dev)
+                    search=config.MOTION_SEARCH_RADIUS, grid=grid,
+                    deblock=deblock, device=dev)
             else:
-                fn, mats = ladder_encode_program(rungs_spec, src_h, src_w,
-                                                 device=dev)
+                prog = ladder_encode_grid(rungs_spec, src_h, src_w, grid,
+                                          device=dev)
             controllers = {r.name: RateController(target_bps=r.video_bitrate,
                                                   fps=fps, init_qp=r.qp)
                            for r in plan.rungs}
@@ -460,7 +478,7 @@ class TorchBackend:
             try:
                 prefetch = DecodePrefetch(src, batch_n, start_frame, maxsize=2)
                 batch_idx = 0
-                with dispatch_stream(dev):
+                with dispatch_streams(prog.devices):
                     while True:
                         td = time.perf_counter()
                         item = prefetch.get()
@@ -475,11 +493,12 @@ class TorchBackend:
                                             *(p[0] for p in item), thumb_path,
                                             1280, dev)
                         if chain_mode:
-                            # only the chains holding real frames; a lone
-                            # chain only up to its last real frame (>= 2)
-                            n_chains = -(-n_real // clen)
-                            lead = (n_chains, clen if n_chains > 1
-                                    else max(2, n_real))
+                            # only the chains holding real frames (a lone
+                            # chain only up to its last real frame, >= 2),
+                            # padded to the data width
+                            real = -(-n_real // clen)
+                            lead = (real + (-real) % data,
+                                    clen if real > 1 else max(2, n_real))
                         else:
                             lead = (batch_n,)
                         n_disp = int(np.prod(lead))
@@ -490,11 +509,10 @@ class TorchBackend:
                         pipe.note_pad_waste(n_real, n_disp)
                         # tail: replicate the last frame, dropped after
                         # encode
-                        planes = [upload((np.concatenate(
+                        planes = [(np.concatenate(
                             [p, np.repeat(p[-1:], n_disp - n_real, 0)])
                             if n_disp > n_real else p)
-                            .reshape(lead + p.shape[1:]), dev)
-                            for p in item]
+                            .reshape(lead + p.shape[1:]) for p in item]
                         qps = {}
                         for r in plan.rungs:
                             q = controllers[r.name].frame_qps(batch_n)
@@ -504,12 +522,14 @@ class TorchBackend:
                                 q[:, 0] = np.maximum(q[:, 0] - 2, 0)
                                 q = np.ascontiguousarray(q[:lead[0], :lead[1]])
                             qps[r.name] = q
+                        # each column stages the batch on its devices and
+                        # leaves its rungs' outputs there
                         if chain_mode:
-                            outs = fn(*planes, mats, qps, {
+                            outs = prog.dispatch(*planes, qps, {
                                 r.name: controllers[r.name].device_rc_params()
                                 for r in plan.rungs})
                         else:
-                            outs = fn(*planes, mats, qps)
+                            outs = prog.dispatch(*planes, qps)
                         pipe.submit({r.name: {k: outs[r.name][k]
                                               for k in keys}
                                      for r in plan.rungs}, n_real, qps)

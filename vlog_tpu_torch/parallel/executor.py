@@ -33,7 +33,12 @@ hands its memory to another tensor while the copy still reads it, and
 nothing on the consumer side synchronizes the device or calls
 ``.cpu()``: either would also wait for the next batch's kernels, which
 the dispatch thread has already queued. On CPU tensors there is nothing
-to copy: ``ready`` returns at once and the pull reads the tensors.
+to copy: ``ready`` returns at once and the pull reads the tensors. A
+grid's outputs span devices (each rung on its column, a column's data
+shards on its devices): then every device gets its own compute event,
+copy stream and copy events, and the pull concatenates a rung's shards
+on the host in data order (no peer copy onto one device, so each
+device's copies overlap its own next kernels only).
 
 Rate control stays deterministic under pipelining through
 :class:`LaggedRateControl`: consumers post observations, the dispatch
@@ -70,6 +75,7 @@ import torch
 
 from vlog_tpu_torch import config
 from vlog_tpu_torch.obs.metrics import runtime
+from vlog_tpu_torch.parallel.mesh import Sharded
 from vlog_tpu_torch.utils import failpoints
 
 _STOP = object()
@@ -97,76 +103,126 @@ def _cuda_tensors(tree: Any) -> list[torch.Tensor]:
     return found
 
 
+def _assemble(tree: Any) -> Any:
+    """``tree`` with every :class:`~vlog_tpu_torch.parallel.mesh.Sharded`
+    of numpy shards concatenated along the leading axis, in data order."""
+    if isinstance(tree, Sharded):
+        return np.concatenate([_assemble(s) for s in tree], axis=0)
+    if isinstance(tree, dict):
+        return {k: _assemble(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_assemble(v) for v in tree)
+    return tree
+
+
+def to_host(tree: Any) -> Any:
+    """``tree`` on the host now: every device its CUDA tensors lie on
+    synchronized (their kernels may sit on any of its streams), every
+    tensor as a numpy array, each ``Sharded`` concatenated in data
+    order. For callers outside the pipeline (tests, the dry run); the
+    pipeline pulls through :func:`start_d2h`."""
+    for d in dict.fromkeys(t.device for t in _cuda_tensors(tree)):
+        torch.cuda.synchronize(d)
+    return _assemble(_map_tensors(tree, lambda t: t.cpu().numpy()))
+
+
 class HostCopy:
     """The host side of one batch's outputs (see :func:`start_d2h`).
 
-    ``wait_compute()`` blocks until the dispatch's kernels finished;
-    ``host(key)`` blocks until entry ``key``'s copy landed and returns it
-    with every tensor as a numpy array (``key=None``: the whole tree)."""
+    ``wait_compute()`` blocks until the dispatch's kernels finished on
+    every device; ``host(key)`` blocks until entry ``key``'s copies
+    landed and returns it with every tensor as a numpy array, each
+    :class:`~vlog_tpu_torch.parallel.mesh.Sharded` concatenated in data
+    order (``key=None``: the whole tree)."""
 
-    def __init__(self, host: Any, computed, copied: dict, stream):
+    def __init__(self, host: Any, computed: list, copied: dict,
+                 streams: dict):
         self._host = host
-        self._computed = computed      # event on the compute stream
-        self._copied = copied          # top-level key -> event on the copy stream
-        self.stream = stream           # the copy stream (None: CPU tensors)
+        self._computed = computed      # one event per device, compute side
+        self._copied = copied          # top-level key -> events, copy side
+        self.streams = streams         # device -> its copy stream
+
+    @property
+    def stream(self):
+        """The copy stream of a one-device tree (None without CUDA
+        tensors; the first device's for a tree over several)."""
+        return next(iter(self.streams.values()), None)
 
     def wait_compute(self) -> None:
-        if self._computed is not None:
-            self._computed.synchronize()
+        for ev in self._computed:
+            ev.synchronize()
 
     def host(self, key: Any = None) -> Any:
         if key is None:
-            for ev in self._copied.values():
-                ev.synchronize()
+            for evs in self._copied.values():
+                for ev in evs:
+                    ev.synchronize()
             tree = self._host
         else:
-            ev = self._copied.get(key)
-            if ev is not None:
+            for ev in self._copied.get(key, ()):
                 ev.synchronize()
             tree = self._host[key]
-        return _map_tensors(tree, lambda t: t.numpy())
+        return _assemble(_map_tensors(tree, lambda t: t.numpy()))
 
 
-def _pinned_copy(t: torch.Tensor, stream) -> torch.Tensor:
+def _pinned_copy(t: torch.Tensor, streams: dict) -> torch.Tensor:
     if not t.is_cuda:
         return t
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    host.copy_(t, non_blocking=True)
+    stream = streams[t.device]
+    with torch.cuda.stream(stream):
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
     t.record_stream(stream)
     return host
 
 
 def start_d2h(tree: Any, copy_stream=None) -> HostCopy:
     """Start the device-to-host copies of every CUDA tensor in ``tree``
-    (dicts/lists/tuples of tensors) and return their :class:`HostCopy`.
+    (dicts/lists/tuples of tensors, and ``Sharded`` splits whose shards
+    may lie on several devices) and return their :class:`HostCopy`.
 
-    Call it on the thread that queued the kernels, inside the compute
-    stream they were queued on: an event recorded there is what the copy
-    stream (``copy_stream``, a new one when None) waits on. A dict gets
-    one copy event per top-level key. Raises when a copy cannot be
-    issued; the tensors of one tree must share a device. Without CUDA
-    tensors nothing starts and ``host`` reads the tensors as they are."""
+    Call it on the thread that queued the kernels, while each device's
+    compute stream (the one its kernels were queued on) is that device's
+    current stream: per device, an event recorded there is what the
+    device's copy stream waits on. ``copy_stream`` is one stream (a
+    one-device tree) or ``{device: stream}``; a device without one gets
+    a new stream. Each tensor copies on its own device's copy stream
+    into pinned host memory; a dict gets one copy event per top-level
+    key and device, so a rung's pull waits only for its own devices'
+    copies. Raises when a copy cannot be issued. Without CUDA tensors
+    nothing starts and ``host`` reads the tensors as they are."""
     cuda = _cuda_tensors(tree)
     if not cuda:
-        return HostCopy(tree, None, {}, None)
-    dev = cuda[0].device
-    if any(t.device != dev for t in cuda):
-        raise ValueError("start_d2h: outputs span several devices "
-                         f"({sorted({str(t.device) for t in cuda})})")
-    stream = copy_stream if copy_stream is not None else torch.cuda.Stream(dev)
-    computed = torch.cuda.Event()
-    computed.record(torch.cuda.current_stream(dev))
-    stream.wait_event(computed)
+        return HostCopy(tree, [], {}, {})
+    devices = list(dict.fromkeys(t.device for t in cuda))
+    if isinstance(copy_stream, dict):
+        streams = {d: copy_stream[d] for d in devices if d in copy_stream}
+    elif copy_stream is not None:
+        streams = {copy_stream.device: copy_stream}
+    else:
+        streams = {}
+    computed = []
+    for d in devices:
+        stream = streams.get(d)
+        if stream is None:
+            stream = streams[d] = torch.cuda.Stream(d)
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(d))
+        stream.wait_event(ev)
+        computed.append(ev)
     groups = tree.items() if isinstance(tree, dict) else ((None, tree),)
     host, copied = {}, {}
-    with torch.cuda.stream(stream):
-        for key, sub in groups:
-            host[key] = _map_tensors(sub, lambda t: _pinned_copy(t, stream))
-            copied[key] = torch.cuda.Event()
-            copied[key].record(stream)
+    for key, sub in groups:
+        host[key] = _map_tensors(sub, lambda t: _pinned_copy(t, streams))
+        events = []
+        for d in dict.fromkeys(t.device for t in _cuda_tensors(sub)):
+            ev = torch.cuda.Event()
+            ev.record(streams[d])
+            events.append(ev)
+        copied[key] = events
     if not isinstance(tree, dict):
         host = host[None]
-    return HostCopy(host, computed, copied, stream)
+    return HostCopy(host, computed, copied, streams)
 
 
 class StagedBatch:
@@ -237,7 +293,7 @@ class PipelineExecutor:
         self._t_first: float | None = None
         self._t_last: float | None = None
         self._aux: list = []
-        self._copy_stream = None
+        self._copy_streams: dict = {}     # device -> its copy stream
         self._own_pool = host_pool is None
         if host_pool is None:
             host_pool = ThreadPoolExecutor(
@@ -346,13 +402,13 @@ class PipelineExecutor:
             if self._t_first is None:
                 self._t_first = time.perf_counter()
         try:
-            batch.d2h = start_d2h(outs, self._copy_stream)
+            batch.d2h = start_d2h(outs, self._copy_streams)
         except BaseException:
             with self._cond:
                 self._in_flight -= 1
                 self._cond.notify_all()
             raise
-        self._copy_stream = batch.d2h.stream or self._copy_stream
+        self._copy_streams.update(batch.d2h.streams)
         for q in self._queues.values():
             q.put(batch)
         return batch
@@ -485,6 +541,17 @@ def dispatch_stream(device: torch.device):
         if stream is None:
             stream = _COMPUTE_STREAMS[index] = torch.cuda.Stream(index)
     return torch.cuda.stream(stream)
+
+
+def dispatch_streams(devices):
+    """:func:`dispatch_stream` of every distinct device in ``devices`` at
+    once (a grid's dispatch thread): each device's compute stream is its
+    current stream inside, so :func:`start_d2h` records each device's
+    compute event where its kernels were queued."""
+    stack = contextlib.ExitStack()
+    for d in dict.fromkeys(torch.device(d) for d in devices):
+        stack.enter_context(dispatch_stream(d))
+    return stack
 
 
 def upload(array: np.ndarray, device: torch.device) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""The fused HEVC chain ladder on one device (port of the single-device
-body of ``vlog_tpu/parallel/hevc_ladder.py::_hevc_chain_ladder_cached``).
+"""The fused HEVC chain ladder (port of
+``vlog_tpu/parallel/hevc_ladder.py``: the one-device body of
+``_hevc_chain_ladder_cached`` and its grid).
 
 One call per dispatch emits every hvc1 rung: per rung, resize (the fused
 kernel on CUDA), edge-pad to CTB (32) alignment, the I+P chain DSP
@@ -7,7 +8,8 @@ kernel on CUDA), edge-pad to CTB (32) alignment, the I+P chain DSP
 deblocking and the device rate-control cascade, the display-region SSE
 per frame, and int16 levels and MVs out; reconstructions never leave the
 device. Every CTB is a 2Nx2N inter CU (no partitions), the C entropy
-coder's contract.
+coder's contract. Over several devices :func:`hevc_chain_ladder_grid`
+lays the ladder out as a (data x rung) grid (``ladder.GridProgram``).
 """
 
 from __future__ import annotations
@@ -21,7 +23,8 @@ from vlog_tpu_torch.codecs.hevc.core import encode_chain_dsp
 from vlog_tpu_torch.codecs.hevc.syntax import CTB
 from vlog_tpu_torch.device import resolve_device
 from vlog_tpu_torch.ops.fused_resize import resize_yuv420
-from vlog_tpu_torch.parallel.ladder import (RungSpec, _as_tensor,
+from vlog_tpu_torch.parallel.ladder import (GridProgram, RungSpec,
+                                            _as_tensor, _grid_program,
                                             ladder_matrices, mats_from_numpy)
 
 I16 = torch.int16
@@ -104,3 +107,18 @@ def hevc_chain_ladder_program(rungs: tuple[RungSpec, ...], src_h: int,
                 for name, h, w, _ in rungs}
 
     return fn, mats
+
+
+def hevc_chain_ladder_grid(rungs: tuple[RungSpec, ...], src_h: int,
+                           src_w: int, *, search: int = 16, grid=None,
+                           deblock: bool = True,
+                           device="cuda") -> GridProgram:
+    """The HEVC chain ladder over ``grid`` (a ``mesh.RungGrid``): per
+    column :func:`hevc_chain_ladder_program` on each data device, the
+    chain axis split over the data axis; ``grid=None`` is the one-device
+    program on ``device``. Same dispatch surface as the H.264 grids."""
+    return _grid_program(
+        ("hevc", rungs, src_h, src_w, search, deblock),
+        lambda col, dev: hevc_chain_ladder_program(
+            col, src_h, src_w, search=search, deblock=deblock, device=dev),
+        rungs, grid, device, chain=True)

@@ -1,6 +1,6 @@
-"""The ladder programs on one device (port of the single-device bodies of
-``vlog_tpu/parallel/ladder.py::_ladder_chain_cached`` and
-``_ladder_encode_cached``).
+"""The ladder programs (port of ``vlog_tpu/parallel/ladder.py``): the
+one-device bodies of ``_ladder_chain_cached`` and
+``_ladder_encode_cached``, and their (data x rung) grids.
 
 ``ladder_encode_program`` is the intra-only step (``gop_mode="intra"``):
 resize, MB padding and one batched intra encode per rung.
@@ -10,10 +10,19 @@ the chain's I frame, its P frames as a Python loop over time (each step
 batched over the dispatch's chains), in-loop deblocking, and the
 device-side in-chain rate adaptation driven by ``cost_proxy``. Levels
 leave as int16; reconstructions never leave the device.
+
+Over several devices a ladder lays out as a (data x rung) grid
+(:class:`GridProgram`, :func:`ladder_chain_grid`,
+:func:`ladder_encode_grid`): one program per rung column, each column's
+batch split into one shard per data device. :func:`sharded_ladder_step`
+is the dry run's step, whose PSNR sums the per-shard partials in data
+order where the reference reduces with ``psum``.
 """
 
 from __future__ import annotations
 
+import threading
+from collections import OrderedDict
 from typing import Callable
 
 import numpy as np
@@ -26,6 +35,8 @@ from vlog_tpu_torch.device import resolve_device
 from vlog_tpu_torch.ops.bitproxy import cost_proxy
 from vlog_tpu_torch.ops.fused_resize import resize_yuv420
 from vlog_tpu_torch.ops.resize import plan_ladder_matrices
+from vlog_tpu_torch.parallel.executor import dispatch_stream
+from vlog_tpu_torch.parallel.mesh import Sharded, data_devices, shard_frames
 
 # Static description of one rung: (name, height, width, qp)
 RungSpec = tuple[str, int, int, int]
@@ -212,3 +223,239 @@ def ladder_chain_program(rungs: tuple[RungSpec, ...], src_h: int, src_w: int,
                 for name, h, w, _ in rungs}
 
     return fn, mats
+
+
+def _encode_rung(y, u, v, rung_mats, qp):
+    """Resize, MB-pad and intra-encode one rung at ``qp`` (a scalar or an
+    (n,) vector); returns (``encode_frame`` output, resized luma)."""
+    ry, ru, rv = resize_yuv420(y, u, v, rung_mats)
+    q = torch.broadcast_to(_as_tensor(qp, y.device, torch.int32),
+                           (y.shape[0],)).contiguous()
+    return encode_frame(*_pad_mb(ry, ru, rv), qp=q), ry
+
+
+def ladder_local(y, u, v, mats: dict, rungs: tuple[RungSpec, ...],
+                 qps=None) -> dict:
+    """Device-local body: frames (n, H, W) -> every rung's
+    ``encode_frame`` output (levels and reconstructions) at the rung's
+    static QP, or at ``qps[name]`` (per-frame) when given."""
+    return {name: _encode_rung(y, u, v, mats[name],
+                               qp if qps is None else qps[name])[0]
+            for name, _, _, qp in rungs}
+
+
+# --- the (data x rung) grid -------------------------------------------------
+
+class GridProgram:
+    """One-call dispatch of a ladder over a (data x rung) grid (the
+    reference's ``GridProgram``, MPMD over its per-column submeshes).
+
+    ``columns`` holds, per rung column, ``(names, devices, progs)``: the
+    column's rung names, its data devices in data order, and one
+    ``(fn, mats)`` per data device (the column's rungs' matrices staged
+    on that device; a device repeated in the list shares one).
+    :meth:`dispatch` splits the batch along its leading (frame or chain)
+    axis into one shard per data device and runs the column's program
+    on each shard on the shard's device, inside that device's compute
+    stream; every column gets the whole batch (the rung-axis
+    replication) and only its own rungs' QP and RC. A rung's outputs are
+    tensors on its device when its column is one device wide, else
+    :class:`Sharded` (a shard per data device, in data order; the host
+    copy concatenates them). ``data`` is the data-axis width (the batch
+    must divide by it), ``label`` the shape ("1x1" on one device)."""
+
+    def __init__(self, columns: tuple, data: int, label: str, chain: bool):
+        self.columns = columns
+        self.data = data
+        self.label = label
+        self._chain = chain
+
+    @property
+    def devices(self) -> tuple:
+        """The distinct devices the program dispatches on, in order."""
+        return tuple(dict.fromkeys(d for _, devs, _ in self.columns
+                                   for d in devs))
+
+    def dispatch(self, y, u, v, qps: dict, rc: dict | None = None) -> dict:
+        """Stage and run every column; returns {rung name: outputs}."""
+        k = y.shape[0] // self.data
+        outs = {}
+        for names, devices, progs in self.columns:
+            sy, su, sv = shard_frames(devices, y, u, v)
+            shards = []
+            for i, (dev, (fn, mats)) in enumerate(zip(devices, progs)):
+                planes = (sy[i], su[i], sv[i])
+                with dispatch_stream(dev):
+                    cq = {name: qps[name][i * k:(i + 1) * k]
+                          for name in names}
+                    if self._chain:
+                        crc = None if rc is None else \
+                            {name: rc[name] for name in names}
+                        shards.append(fn(*planes, mats, cq, crc))
+                    else:
+                        shards.append(fn(*planes, mats, cq))
+            if len(shards) == 1:
+                outs.update(shards[0])
+                continue
+            for name in names:
+                outs[name] = {key: Sharded(s[name][key] for s in shards)
+                              for key in shards[0][name]}
+        return outs
+
+
+# (kind, geometry, options, grid layout) -> GridProgram, most recent last
+_GRIDS: OrderedDict = OrderedDict()     # guarded-by: _GRIDS_LOCK
+_GRIDS_LOCK = threading.Lock()          # lock-order: 14
+_GRIDS_MAX = 8
+
+
+def grid_layout(grid) -> tuple:
+    """A grid's value key: its label and, per column, the rungs and the
+    data devices (a port ``Mesh`` hashes by identity)."""
+    return (grid.label, tuple((col.rungs, tuple(data_devices(col.mesh)))
+                              for col in grid.columns))
+
+
+def _grid_program(key: tuple, build: Callable, rungs: tuple, grid,
+                  device, chain: bool) -> GridProgram:
+    """``build(col_rungs, device) -> (fn, mats)`` laid out over ``grid``.
+    ``grid=None`` is one column on ``device``, built anew (the
+    one-device path); a grid's program is cached on its layout, so a
+    second run on the same grid reuses the staged matrices."""
+    if grid is None:
+        dev = resolve_device(device)
+        names = tuple(r[0] for r in rungs)
+        return GridProgram(((names, (dev,), (build(rungs, dev),)),), 1,
+                           "1x1", chain)
+    key = key + (grid_layout(grid),)
+    with _GRIDS_LOCK:
+        prog = _GRIDS.get(key)
+        if prog is not None:
+            _GRIDS.move_to_end(key)
+            return prog
+        cols = []
+        for col in grid.columns:
+            devices = tuple(resolve_device(d)
+                            for d in data_devices(col.mesh))
+            per_dev: dict = {}
+            for d in devices:
+                if d not in per_dev:
+                    per_dev[d] = build(col.rungs, d)
+            cols.append((col.names, devices,
+                         tuple(per_dev[d] for d in devices)))
+        prog = GridProgram(tuple(cols), grid.data, grid.label, chain)
+        _GRIDS[key] = prog
+        while len(_GRIDS) > _GRIDS_MAX:
+            _GRIDS.popitem(last=False)
+    return prog
+
+
+def ladder_encode_grid(rungs: tuple[RungSpec, ...], src_h: int, src_w: int,
+                       grid=None, *, device="cuda") -> GridProgram:
+    """The intra ladder over ``grid`` (a ``mesh.RungGrid``): per column
+    :func:`ladder_encode_program` on each data device; ``grid=None`` is
+    the one-device program on ``device``."""
+    return _grid_program(
+        ("intra", rungs, src_h, src_w),
+        lambda col, dev: ladder_encode_program(col, src_h, src_w,
+                                               device=dev),
+        rungs, grid, device, chain=False)
+
+
+def ladder_chain_grid(rungs: tuple[RungSpec, ...], src_h: int, src_w: int,
+                      *, search: int = 8, grid=None, deblock: bool = False,
+                      device="cuda") -> GridProgram:
+    """The I+P chain ladder over ``grid``: per column
+    :func:`ladder_chain_program` on each data device, the chain axis
+    split over the data axis (chains are independent mini-GOPs);
+    ``grid=None`` is the one-device program on ``device``."""
+    return _grid_program(
+        ("chain", rungs, src_h, src_w, search, deblock),
+        lambda col, dev: ladder_chain_program(col, src_h, src_w,
+                                              search=search,
+                                              deblock=deblock, device=dev),
+        rungs, grid, device, chain=True)
+
+
+def _mesh_mats(mesh, rungs, src_h: int, src_w: int) -> tuple[tuple, dict]:
+    """The data devices of ``mesh`` and the rungs' matrices staged once
+    on each distinct one ({device: mats})."""
+    devices = tuple(resolve_device(d) for d in data_devices(mesh))
+    host = ladder_matrices(rungs, src_h, src_w)
+    return devices, {d: mats_from_numpy(host, d) for d in dict.fromkeys(devices)}
+
+
+def sharded_ladder_levels(mesh, rungs: tuple[RungSpec, ...], src_h: int,
+                          src_w: int) -> tuple[Callable, dict]:
+    """The intra ladder step sharded over ``mesh``'s data axis.
+
+    Returns ``(fn, mats)``; ``fn(y, u, v, mats)`` splits the frames (the
+    count must divide by the data width) into one shard per data device
+    and returns per rung the ``encode_frame`` dict with every array
+    :class:`Sharded`; ``mats`` maps each distinct device to its staged
+    matrices."""
+    devices, mats = _mesh_mats(mesh, rungs, src_h, src_w)
+
+    def fn(y, u, v, mats):
+        shards = []
+        for d, *planes in zip(devices, *shard_frames(devices, y, u, v)):
+            with dispatch_stream(d):
+                shards.append(ladder_local(*planes, mats[d], rungs))
+        return {name: {k: Sharded(s[name][k] for s in shards)
+                       for k in shards[0][name]} for name, *_ in rungs}
+
+    return fn, mats
+
+
+def sharded_ladder_step(mesh, rungs: tuple[RungSpec, ...], src_h: int,
+                        src_w: int) -> tuple[Callable, dict]:
+    """Ladder step plus per-rung mean PSNR-Y (the dry run's step).
+
+    ``fn(y, u, v, mats, valid) -> (levels, stats)``: ``valid`` is an (n,)
+    float32 0/1 mask (:func:`valid_mask`) split like the frames, so
+    pad_batch's duplicated frames never bias the statistics. Each shard
+    computes its sum of valid frames' MSE over the display region in
+    float32; the sums of the shards (and their valid counts) add up in
+    data order on the host, where the reference reduces with ``psum``.
+    ``stats[name]`` is a float32 tensor."""
+    devices, mats = _mesh_mats(mesh, rungs, src_h, src_w)
+
+    def fn(y, u, v, mats, valid):
+        shards, partials = [], []
+        for d, sy, su, sv, sm in zip(devices, *shard_frames(
+                devices, y, u, v, valid)):
+            with dispatch_stream(d):
+                out, part = {}, {}
+                vm = sm.to(torch.float32)
+                for name, h, w, qp in rungs:
+                    out[name], ry = _encode_rung(sy, su, sv, mats[d][name],
+                                                 qp)
+                    err = (out[name]["recon_y"][:, :h, :w].to(torch.float32)
+                           - ry.to(torch.float32))
+                    # pulled inside the device's compute stream, which
+                    # orders the copy after the kernels queued there
+                    part[name] = ((vm * (err * err).mean((1, 2))).sum().cpu(),
+                                  vm.sum().cpu())
+            shards.append(out)
+            partials.append(part)
+        stats = {}
+        for name, *_ in rungs:
+            total_mse = torch.zeros((), dtype=torch.float32)
+            total_n = torch.zeros((), dtype=torch.float32)
+            for part in partials:
+                total_mse = total_mse + part[name][0]
+                total_n = total_n + part[name][1]
+            mse = total_mse / torch.clamp(total_n, min=1.0)
+            stats[name] = 10.0 * torch.log10(
+                255.0 ** 2 / torch.clamp(mse, min=1e-6))
+        levels = {name: {k: Sharded(s[name][k] for s in shards)
+                         for k in shards[0][name]} for name, *_ in rungs}
+        return levels, stats
+
+    return fn, mats
+
+
+def valid_mask(n_total: int, n_real: int) -> torch.Tensor:
+    """0/1 float32 mask marking pad_batch's duplicated trailing frames
+    invalid."""
+    return (torch.arange(n_total) < n_real).to(torch.float32)

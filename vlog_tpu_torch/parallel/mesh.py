@@ -1,5 +1,5 @@
-"""Device mesh specs and the (data x rung) grid layout (port of the
-device-independent part of ``vlog_tpu/parallel/mesh.py``).
+"""Device mesh specs, data-axis sharding and the (data x rung) grid
+layout (port of ``vlog_tpu/parallel/mesh.py``).
 
 Two axes cover the media pipeline: ``data`` (frames, I+P chains or ASR
 windows of a batch) and ``rung`` (the ladder's rungs in cost-balanced
@@ -7,11 +7,15 @@ column groups, :func:`balanced_rung_columns`). The spec syntax
 (``VLOG_TPU_MESH``: ``data:-1``, ``data:2,rung:4``, ``auto``), the shape
 resolution and the grid layout are the reference's, line for line.
 
-A :class:`Mesh` here is a plain array of ``torch.device`` s with axis
-names: the port dispatches on one device, and a program sharded over
-several CUDA devices (``shard_map`` / ``shard_frames`` in the
-reference) is not ported yet (ROADMAP Queue A item 14).
-The backends therefore raise on any grid wider than one device.
+A :class:`Mesh` here is a plain array of devices with axis names. The
+grid is MPMD over the reference's per-column submeshes: each rung
+column runs its own program, and its "data" axis is a split of the
+batch into one shard per device of the column (:func:`shard_frames`),
+each shard dispatched on its own device. :class:`Sharded` holds such a
+split (a shard per data device, in data order); the host assembles it.
+``make_mesh()`` without devices takes every visible CUDA device (each
+once); a device list that repeats a device (``["cpu"] * 4``, or one card
+as several logical devices) is accepted only when passed explicitly.
 """
 
 from __future__ import annotations
@@ -94,6 +98,57 @@ def make_mesh(spec: str | MeshSpec | None = None,
     if total > n:
         raise ValueError(f"mesh {sizes} needs {total} devices, have {n}")
     return Mesh(_device_array(devices[:total], sizes), spec.axis_names)
+
+
+class Sharded(tuple):
+    """One array split along its leading axis over a data axis: a tensor
+    per data device, in data order (each on its own device). The host
+    copy (``parallel/executor.py::start_d2h``) concatenates the shards."""
+
+    __slots__ = ()
+
+
+def data_devices(mesh, axis: str = "data") -> tuple:
+    """The devices along ``axis`` of a mesh (every other axis of size 1),
+    or of a plain device list, in order."""
+    if not isinstance(mesh, Mesh):
+        return tuple(mesh)
+    if axis not in mesh.axis_names:
+        raise ValueError(f"mesh has no {axis!r} axis: {mesh.axis_names}")
+    devs = np.moveaxis(mesh.devices, mesh.axis_names.index(axis), 0)
+    if int(np.prod(devs.shape[1:])) != 1:
+        raise ValueError(f"mesh {mesh.shape}: shards over {axis!r} need "
+                         "every other axis of size 1")
+    return tuple(devs.reshape(devs.shape[0]).tolist())
+
+
+def shard_frames(mesh, *arrays, axis: str = "data"):
+    """Split (N, ...) arrays along N over the devices of ``axis``: one
+    :class:`Sharded` per array, a contiguous block of N / width rows on
+    each data device, in data order (``mesh`` may also be a plain device
+    list, repeats allowed). N must divide by the axis width: callers pad
+    batches to it (:func:`pad_batch`). Each block is staged inside its
+    device's ``executor.dispatch_stream`` (host arrays pinned and copied
+    without blocking), so the device's compute stream orders the copy
+    before the work queued there next."""
+    from vlog_tpu_torch.parallel.executor import dispatch_stream, upload
+
+    devices = [torch.device(d) for d in data_devices(mesh, axis)]
+    width = len(devices)
+    n = arrays[0].shape[0]
+    if any(a.shape[0] != n for a in arrays) or n % width:
+        raise ValueError(f"shard_frames: {[a.shape[0] for a in arrays]} rows "
+                         f"do not divide over {width} devices (pad_batch "
+                         "first)")
+    k = n // width
+    shards = [[] for _ in arrays]
+    for i, dev in enumerate(devices):
+        with dispatch_stream(dev):
+            for j, a in enumerate(arrays):
+                block = a[i * k:(i + 1) * k]
+                shards[j].append(block.to(dev) if isinstance(block, torch.Tensor)
+                                 else upload(np.asarray(block), dev))
+    return tuple(Sharded(s) for s in shards)
 
 
 def pad_batch(n_devices: int, *arrays):

@@ -20,14 +20,18 @@ reference's, unchanged).
   ``VLOG_DEVICE_PROBE_INTERVAL_S`` in the worker) reinstates devices
   that compute again. On CUDA a sticky error (an illegal address)
   poisons the process's context, so there the probe keeps failing until
-  the process restarts (ROADMAP Queue C).
+  the process restarts (ROADMAP Queue C). Attribution and quarantine
+  are keyed by device: a device list that repeats a device (one card as
+  several logical devices) gives the device one attribution per report
+  however often the lease names it, and quarantining it takes every
+  position of it out of rotation.
 
 The devices are the visible CUDA devices by default and may be any
 opaque objects (the tests drive the grant logic with strings). The lease
-travels to the backends through a contextvar: :func:`grid_for_run`
-returns None under a lease one device wide (the run then executes on
-``lease.devices[0]``) and a grid otherwise, which the port's backends
-refuse (multi-device dispatch is not ported).
+travels to the backends through a contextvar: :func:`placement_for_run`
+gives a run its first device (decode, thumbnail and the other work that
+stays on one device) and its (data x rung) grid from
+:func:`grid_for_run` (None under a lease one device wide).
 """
 
 from __future__ import annotations
@@ -46,7 +50,7 @@ from vlog_tpu_torch import config
 __all__ = [
     "MeshScheduler", "SlotCancelled", "SlotLease", "SlotTicket",
     "current_lease", "device_for_run", "get_scheduler", "grid_for_run",
-    "host_pool_for_run", "mesh_for_run",
+    "host_pool_for_run", "mesh_for_run", "placement_for_run",
 ]
 
 
@@ -126,24 +130,36 @@ def grid_for_run(rungs, batch_hint: int | None = None, devices=None):
     return grid
 
 
-def device_for_run(default: torch.device, rungs=(),
-                   batch_hint: int | None = None) -> torch.device:
-    """The one device a run's work goes to: ``default`` (the caller's own
-    device) without a lease, ``lease.devices[0]`` under a slot lease one
-    device wide (:func:`grid_for_run` over ``rungs`` stamps its "1x1"
-    shape). A lease wider than one device raises
-    :class:`NotImplementedError`: a dispatch over several CUDA devices is
-    not ported (ROADMAP Queue A item 14), and a run must never quietly
-    use one device of it."""
+def placement_for_run(default: torch.device, rungs=(),
+                      batch_hint: int | None = None):
+    """Where a run's work goes: ``(device, grid)``.
+
+    Under a slot lease: the lease's first device and the lease's grid
+    (:func:`grid_for_run` over ``rungs``; None, stamped "1x1", when the
+    lease is one device wide). Without a lease: a generic ``"cuda"``
+    ``default`` (no index) spreads over every visible CUDA device when
+    there are several (the reference's no-lease behaviour: ``cuda:0``
+    and a grid over all of them); any other ``default`` is the one
+    device, with no grid."""
     lease = current_lease()
     if lease is None:
-        return default
-    if lease.width > 1:
-        raise NotImplementedError(
-            f"a lease of {lease.width} devices: the port dispatches on one "
-            "device (ROADMAP Queue A item 14, multi-device grids)")
-    grid_for_run(rungs, batch_hint=batch_hint)
-    return torch.device(lease.devices[0])
+        if (default.type == "cuda" and default.index is None
+                and torch.cuda.device_count() > 1):
+            # a ladder-less caller (no rungs) asks for the device alone
+            return (torch.device("cuda", 0),
+                    grid_for_run(rungs, batch_hint=batch_hint)
+                    if rungs else None)
+        return default, None
+    grid = grid_for_run(rungs, batch_hint=batch_hint) \
+        if rungs or lease.width <= 1 else None
+    return torch.device(lease.devices[0]), grid
+
+
+def device_for_run(default: torch.device, rungs=(),
+                   batch_hint: int | None = None) -> torch.device:
+    """The first device of :func:`placement_for_run`: the device of the
+    run's one-device work (decode, audio, thumbnail)."""
+    return placement_for_run(default, rungs, batch_hint)[0]
 
 
 def host_pool_for_run() -> ThreadPoolExecutor | None:
@@ -412,8 +428,8 @@ class MeshScheduler:
                             reason: str = "") -> tuple:
         """Attribute a device-classified fault to the lease's devices.
 
-        The runtime rarely names the sick device, so every device of the
-        faulting slot takes one attribution; devices reaching
+        The runtime rarely names the sick device, so every distinct
+        device of the faulting slot takes one attribution; devices reaching
         ``VLOG_QUARANTINE_THRESHOLD`` leave the rotation. Sick slots
         stop granting immediately; the partition renegotiates around
         the hole at the next job boundary. Returns the devices newly
@@ -421,7 +437,8 @@ class MeshScheduler:
         t = time.monotonic()
         newly = []
         with self._cond:
-            for d in lease.devices:
+            # once per distinct device: a repeated device is one device
+            for d in dict.fromkeys(lease.devices):
                 if d in self._quarantined:
                     continue
                 self._fault_counts[d] = self._fault_counts.get(d, 0) + 1

@@ -1155,10 +1155,10 @@ class WorkerDaemon(ComputeWatchdogMixin):
             yield lease
 
     def _job_device(self, lease):
-        """The device a job's compute runs on: the lease's device under a
-        slot lease one device wide (a wider one raises
-        ``NotImplementedError``, ROADMAP Queue A item 14), else the
-        daemon's own ``device``."""
+        """The device a job's one-device work runs on (decode, audio,
+        thumbnail, sprites): the lease's first device under a slot lease,
+        whose (data x rung) grid the backend takes for the ladder; else
+        the daemon's own ``device``."""
         if lease is None:
             return self.device
         from vlog_tpu_torch.parallel.scheduler import device_for_run

@@ -1,11 +1,14 @@
-"""Transcription job: audio -> batched Whisper on one device -> WebVTT.
+"""Transcription job: audio -> batched Whisper -> WebVTT.
 
 The port of ``vlog_tpu/worker/transcribe.py``: extract 16 kHz mono PCM,
 cut it into overlapping 30 s windows, skip digital silence and windows
 the VAD finds no speech in, decode the rest in batches (directly, or
 through the process's continuous-batching engine), stitch the windows'
-cues by timestamp and write ``captions.vtt``. One device, no mesh: the
-JAX package's data-parallel window sharding is not here.
+cues by timestamp and write ``captions.vtt``. Without the engine, a
+batch splits over several devices the way the reference shards it over
+its mesh's data axis: padded to the device count, one block of windows
+per device (``asr.engine.generate_rows``); every visible card by default
+when the model is on CUDA and there are several.
 """
 
 from __future__ import annotations
@@ -79,11 +82,16 @@ def transcribe_audio(
     batch_windows: int = 8,
     max_new: int | None = None,
     progress_cb: ProgressFn | None = None,
+    devices: list | None = None,
 ) -> tuple[list[Cue], str]:
     """16 kHz mono float PCM -> stitched cues + language code, decoded in
-    batches of ``batch_windows`` on the assets' device (no engine)."""
-    from vlog_tpu_torch.asr.decode import (detect_language, generate_batch,
-                                           parse_segments)
+    batches of ``batch_windows`` (no engine). ``devices``: the devices a
+    batch splits over (a device may repeat); default every visible card
+    when the assets are on CUDA and there are several, else the assets'
+    device. Over several devices the batch size rounds up to their count
+    and each batch pads to it with silent rows."""
+    from vlog_tpu_torch.asr.decode import detect_language, parse_segments
+    from vlog_tpu_torch.asr.engine import generate_rows
 
     window_s = window_s or config.WHISPER_CHUNK_S
     overlap_s = overlap_s if overlap_s is not None else config.WHISPER_OVERLAP_S
@@ -93,21 +101,32 @@ def transcribe_audio(
     tokenizer = assets.tokenizer
     st = assets.tokens
     device = assets.model.device
+    if devices is None:
+        devices = [device]
+        if device.type == "cuda" and torch.cuda.device_count() > 1:
+            devices = [torch.device("cuda", i)
+                       for i in range(torch.cuda.device_count())]
+    width = len(devices)
+    batch_windows += (-batch_windows) % width
 
     done = 0
     for b0 in range(0, len(live), batch_windows):
         idxs = live[b0:b0 + batch_windows]
-        batch = np.stack([melmod.pad_or_trim(windows[i][1].astype(np.float32))
-                          for i in idxs])
+        stack = [melmod.pad_or_trim(windows[i][1].astype(np.float32))
+                 for i in idxs]
+        # pad so the batch divides over the devices
+        stack += [np.zeros_like(stack[0])] * ((-len(idxs)) % width)
         feats = melmod.log_mel_spectrogram(
-            batch, n_mels=assets.cfg.num_mel_bins, device=device)
+            np.stack(stack), n_mels=assets.cfg.num_mel_bins,
+            device=devices[0])
         if language is None:
             # Detect from the first live window only: one window's encoder
-            # pass, never polluted by other windows.
+            # pass, never polluted by other windows or padding rows.
             language = detect_language(assets, feats[:1])
-        toks, no_speech = generate_batch(assets, feats, language=language,
-                                         max_new=max_new,
-                                         beam=config.WHISPER_BEAM)
+        toks, no_speech = generate_rows(assets, feats, devices,
+                                        language=language, max_new=max_new,
+                                        beam=config.WHISPER_BEAM)
+        toks, no_speech = toks[:len(idxs)], no_speech[:len(idxs)]
         for row, nsp, i in zip(toks, no_speech, idxs):
             if st.no_speech is not None and nsp > 0.6:
                 continue
