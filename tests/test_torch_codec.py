@@ -136,7 +136,7 @@ def test_boundary_strengths_bit_exact():
         want_v, want_h = jdb.p_bs(jnp.asarray(nz4[i]), jnp.asarray(mvs[i]))
         np.testing.assert_array_equal(got_v[i].numpy(), np.asarray(want_v))
         np.testing.assert_array_equal(got_h[i].numpy(), np.asarray(want_h))
-    iv, ih = tdb.intra_bs(3, 5)
+    iv, ih = tdb.intra_bs(3, 5, "cpu")
     np.testing.assert_array_equal(iv.numpy(), np.asarray(jdb.intra_bs(3, 5)[0]))
     np.testing.assert_array_equal(ih.numpy(), np.asarray(jdb.intra_bs(3, 5)[1]))
 

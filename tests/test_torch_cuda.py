@@ -798,3 +798,119 @@ def test_grid_program_on_a_repeated_card_equals_one_device(cuda):  # slowlane-ok
         for k in want[name]:
             np.testing.assert_array_equal(got[name][k], want[name][k],
                                           err_msg=f"{name}/{k}")
+
+
+def test_thumbnail_grab_resize_on_the_card(cuda, tmp_path):
+    """The admin plane's thumbnail grab (``POST .../thumbnail/from-time``
+    on an app built with ``device="cuda"``): one 1080p frame down to the
+    720x1280 thumbnail in exactly 3 kernel launches, its planes held to
+    the plain version, the JPEG written at the thumbnail's size."""
+    import asyncio
+
+    from aiohttp.test_utils import TestClient, TestServer
+
+    from vlog_tpu_torch.api.admin_api import THUMBNAILER, build_admin_app
+    from vlog_tpu_torch.backends.torch_backend import TorchBackend
+    from vlog_tpu_torch.db import Database, create_all
+    from vlog_tpu_torch.jobs import videos as vids
+    from vlog_tpu_torch.media.y4m import write_y4m
+
+    rng = np.random.default_rng(8)
+    frames = [(rng.integers(0, 256, (1080, 1920), dtype=np.uint8),
+               rng.integers(0, 256, (540, 960), dtype=np.uint8),
+               rng.integers(0, 256, (540, 960), dtype=np.uint8))
+              for _ in range(3)]
+    src = tmp_path / "src.y4m"
+    write_y4m(src, frames, fps_num=24, fps_den=1)
+    y, u, v = frames[1]
+    want = TorchBackend(device="cpu")._thumbnail_planes(y, u, v)
+
+    async def body():
+        db = Database(f"sqlite:///{tmp_path / 'vlog.db'}")
+        await db.connect()
+        await create_all(db)
+        video = await vids.create_video(db, "Grab", source_path=str(src))
+        app = build_admin_app(db, upload_dir=tmp_path / "up",
+                              video_dir=tmp_path / "videos")
+        client = TestClient(TestServer(app))
+        await client.start_server()
+        try:
+            backend = app[THUMBNAILER].backend()
+            before = fused_resize.launches
+            r = await client.post(
+                f"/api/videos/{video['id']}/thumbnail/from-time",
+                json={"time_s": 1 / 24})
+            return (r.status, await r.json(), fused_resize.launches - before,
+                    backend)
+        finally:
+            await client.close()
+            await db.disconnect()
+
+    loop = asyncio.new_event_loop()
+    try:
+        status, answer, launched, backend = loop.run_until_complete(
+            asyncio.wait_for(body(), 120))
+    finally:
+        loop.close()
+    assert status == 200, answer
+    assert launched == 3 and backend.device.type == "cuda"
+    got = backend._thumbnail_planes(y, u, v)
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda"
+        max_abs, n_diff = _diff(g.cpu(), w)
+        assert max_abs <= 1 and n_diff <= 1e-3 * w.numel()
+    jpeg = (tmp_path / "videos" / "grab" / "thumbnail.jpg").read_bytes()
+    sof = jpeg.index(b"\xff\xc0")
+    assert (int.from_bytes(jpeg[sof + 5:sof + 7], "big"),
+            int.from_bytes(jpeg[sof + 7:sof + 9], "big")) == (720, 1280)
+
+
+def test_av1_rung_resize_on_the_card(cuda, tmp_path, monkeypatch):
+    """``TorchBackend(device="cuda").run(codec="av1")``: every scaled
+    rung's batch goes through the kernel on the card and is held to the
+    plain version; the tree has av01 segments. Skips where the libav shim
+    or an AV1 encoder is missing."""
+    from vlog_tpu_torch import config
+    from vlog_tpu_torch.backends import av1_path
+    from vlog_tpu_torch.backends.torch_backend import TorchBackend
+    from vlog_tpu_torch.media.probe import get_video_info
+    from vlog_tpu_torch.media.y4m import write_y4m
+    from vlog_tpu_torch.native.build import get_av_lib
+
+    lib = get_av_lib()
+    if lib is None:
+        pytest.skip("libav shim unavailable")
+    h = lib.vt_av1_open(64, 64, 24, 1, 200_000, 8, 8)
+    if not h:
+        pytest.skip("no system AV1 encoder")
+    lib.vt_av1_close(h)
+    checked = []
+
+    def held(y, u, v, mats):
+        got = fused_resize.resize_yuv420(y, u, v, mats)
+        cpu_mats = tuple(tuple(m.cpu() for m in pair) for pair in mats)
+        want = fused_resize.resize_yuv420(y.cpu(), u.cpu(), v.cpu(),
+                                          cpu_mats)
+        for g, w in zip(got, want):
+            max_abs, n_diff = _diff(g.cpu(), w)
+            assert max_abs <= 1 and n_diff <= 1e-3 * w.numel()
+        checked.append(y.shape[0])
+        return got
+
+    monkeypatch.setattr(av1_path, "resize_yuv420", held)
+    rng = np.random.default_rng(4)
+    src = tmp_path / "src.y4m"
+    write_y4m(src, [(rng.integers(0, 256, (360, 640), dtype=np.uint8),
+                     rng.integers(0, 256, (180, 320), dtype=np.uint8),
+                     rng.integers(0, 256, (180, 320), dtype=np.uint8))
+                    for _ in range(12)], fps_num=12, fps_den=1)
+    rungs = (config.QualityRung("360p", 360, 600_000, 0, base_qp=30),
+             config.QualityRung("240p", 240, 300_000, 0, base_qp=31))
+    be = TorchBackend(device="cuda")
+    plan = be.plan(get_video_info(src), rungs, tmp_path / "out",
+                   codec="av1", segment_duration_s=1.0)
+    before = fused_resize.launches
+    res = be.run(plan, resume=False)
+    assert sum(checked) == 12 and fused_resize.launches - before >= 3
+    assert all(r.codec_string.startswith("av01.") and r.segment_count == 1
+               for r in res.rungs)

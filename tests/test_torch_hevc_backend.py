@@ -152,7 +152,8 @@ def test_resume_equals_jax_resume(source, tmp_path, single_device):
 
 @pytest.mark.parametrize("opts,match", [
     ({"streaming_format": "hls_ts"}, "CMAF-only"),
-    ({"codec": "av1"}, "not ported"),
+    # AV1 is ported (backends/av1_path.py); like HEVC it is CMAF-only
+    ({"codec": "av1", "streaming_format": "hls_ts"}, "av1 output is CMAF-only"),
     ({"codec": "vp9"}, "unknown codec"),
 ])
 def test_refused_options_raise(source, tmp_path, opts, match):

@@ -9,7 +9,9 @@ the HTTP plane's modules (the Worker API server, auth, the remote
 worker, the SLO plane, the GC) and the serving plane's (the Postgres
 facade and its wire-protocol double, the delivery plane, the public API
 and its UI) and the multi-device grid's (the mesh, the ladder grids and
-the dry run).
+the dry run) and the admin plane's (the admin API, the catalog, the audit
+log, the sessions, chapters and codec strings, the console client) and
+the AV1 path's (the OBU parser, the delegated encode).
 """
 
 from __future__ import annotations
@@ -36,7 +38,14 @@ HTTP_PLANE = ("vlog_tpu_torch.api.worker_api", "vlog_tpu_torch.api.auth",
               # the (data x rung) grid and its dry run
               "vlog_tpu_torch.parallel.mesh", "vlog_tpu_torch.parallel.ladder",
               "vlog_tpu_torch.parallel.hevc_ladder",
-              "vlog_tpu_torch.parallel.dryrun")
+              "vlog_tpu_torch.parallel.dryrun",
+              # the admin plane and its console client
+              "vlog_tpu_torch.api.admin_api", "vlog_tpu_torch.api.catalog",
+              "vlog_tpu_torch.api.audit", "vlog_tpu_torch.jobs.sessions",
+              "vlog_tpu_torch.media.chapters", "vlog_tpu_torch.media.codecstr",
+              "vlog_tpu_torch.cli", "vlog_tpu_torch.cli.main",
+              # the AV1 re-encode
+              "vlog_tpu_torch.codecs.av1", "vlog_tpu_torch.backends.av1_path")
 
 _BLOCKED_IMPORT_SCRIPT = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys

@@ -1,6 +1,5 @@
-"""DB-backed settings service with TTL cache and env fallback (the part of
-``vlog_tpu/api/settings.py`` the job plane uses: ``jobs/qos.py`` reads
-tenant policies through ``get``; ``set`` writes one).
+"""DB-backed settings service with TTL cache and env fallback (a copy of
+``vlog_tpu/api/settings.py``).
 
 Reference parity: api/settings_service.py:48-1243 — dot-key settings
 (``transcoding.segment_duration``) stored typed in the ``settings`` table,
@@ -72,6 +71,12 @@ class SettingsService:
         self.ttl_s = ttl_s
         self._cache: dict[str, tuple[float, Any]] = {}
 
+    def invalidate(self, key: str | None = None) -> None:
+        if key is None:
+            self._cache.clear()
+        else:
+            self._cache.pop(key, None)
+
     async def get(self, key: str, default: Any = None) -> Any:
         hit = self._cache.get(key)
         now = time.monotonic()
@@ -104,3 +109,13 @@ class SettingsService:
             """,
             {"k": key, "v": _encode(value, vt), "t": vt, "now": db_now()})
         self._cache[key] = (time.monotonic(), _decode(_encode(value, vt), vt))
+
+    async def delete(self, key: str) -> bool:
+        n = await self.db.execute("DELETE FROM settings WHERE key=:k",
+                                  {"k": key})
+        self.invalidate(key)
+        return bool(n)
+
+    async def all(self) -> dict[str, Any]:
+        rows = await self.db.fetch_all("SELECT * FROM settings ORDER BY key")
+        return {r["key"]: _decode(r["value"], r["value_type"]) for r in rows}

@@ -50,7 +50,9 @@ encodes only the chains that hold real frames, and a lone partial chain
 only up to its last real frame: the JAX program encodes the replicated
 padding too and drops it, so the written bytes are the same.
 ``codec="h265"`` (or ``"hevc"``) runs the HEVC ladder instead
-(backends/hevc_path.py, CMAF only); AV1 is not ported.
+(backends/hevc_path.py, CMAF only), and ``codec="av1"`` the delegated
+AV1 encode (backends/av1_path.py, CMAF only: the resize kernel on the
+device, the system AV1 encoder through the libav shim).
 """
 
 from __future__ import annotations
@@ -73,6 +75,7 @@ from vlog_tpu_torch.backends.base import (
     plan_rung_geometry,
     register_backend,
 )
+from vlog_tpu_torch.backends.av1_path import run_av1
 from vlog_tpu_torch.backends.hevc_path import run_hevc
 from vlog_tpu_torch.backends.rate_control import RateController
 from vlog_tpu_torch.backends.source import open_source
@@ -147,9 +150,7 @@ class TorchBackend:
         codec = opts.get("codec", "h264")
         if codec == "hevc":
             codec = "h265"
-        if codec == "av1":
-            raise ValueError("codec 'av1' is not ported (H.264 and HEVC only)")
-        if codec not in ("h264", "h265"):
+        if codec not in ("h264", "h265", "av1"):
             raise ValueError(f"unknown codec {codec!r}")
         fmt = opts.get("streaming_format", config.STREAMING_FORMAT)
         if fmt not in ("cmaf", "hls_ts"):
@@ -190,6 +191,8 @@ class TorchBackend:
         t0 = time.monotonic()
         if any(r.codec == "h265" for r in plan.rungs):
             return run_hevc(self, plan, progress_cb, resume, t0)
+        if any(r.codec == "av1" for r in plan.rungs):
+            return run_av1(self, plan, progress_cb, resume, t0)
         out = plan.out_dir
         fps = plan.fps_num / plan.fps_den
         frames_per_seg = max(1, round(plan.segment_duration_s * fps))

@@ -3,9 +3,10 @@ entropy coders, the AAC encoder and decoder, the JPEG encoder.
 
 The codec/container rulebook below is a copy of ``vlog_tpu/codecs``'s:
 the port's worker shares its job queue with the JAX package's API
-servers, so it validates a re-encode's payload by the same rules. AV1 is
-in the rulebook but not ported (ROADMAP Queue A item 11): the backend
-refuses it when it plans the run.
+servers, so it validates a re-encode's payload by the same rules. AV1
+(``codecs/av1``: the OBU walk, the sequence header and the codec
+string) is encoded by the system encoder through the libav shim
+(``backends/av1_path.py``).
 """
 
 # Codecs the product plane can encode to.

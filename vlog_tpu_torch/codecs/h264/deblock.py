@@ -46,7 +46,7 @@ TC0 = np.array([
 # Boundary strengths, (n, mbh, mbw, 4, 4) int32 [frame, r, c, edge, segment]
 # ---------------------------------------------------------------------------
 
-def intra_bs(mbh: int, mbw: int, device="cpu"):
+def intra_bs(mbh: int, mbw: int, device):
     """(bs_v, bs_h) of an all-Intra_16x16 frame, (mbh, mbw, 4, 4): MB
     edges 4, internal 3 (picture edges are masked off in the filter)."""
     bs = torch.full((mbh, mbw, 4, 4), 3, dtype=torch.int32, device=device)

@@ -4,9 +4,10 @@ Same ``VLOG_*`` names and defaults as the JAX package's config (ladder,
 GOP structure, entropy, deblocking, search radius, batch and pipeline
 depth, sprite sheets, transcription, the device runtime), so one
 environment configures both. Only what the port's H.264 paths (I+P or
-intra-only, CMAF or MPEG-TS), its HEVC path, its pipeline, its sprite
-worker, its transcription worker, its device runtime and its worker
-daemon with the job plane under it read is here.
+intra-only, CMAF or MPEG-TS), its HEVC and AV1 paths, its pipeline, its
+sprite worker, its transcription worker, its device runtime, its worker
+daemon with the job plane under it, and its API servers (Worker, public
+and admin) read is here.
 """
 
 from __future__ import annotations
@@ -79,6 +80,11 @@ VIDEO_DIR: Path = _env_path("VLOG_VIDEO_DIR", str(BASE_DIR / "videos"))
 TMP_DIR: Path = _env_path("VLOG_TMP_DIR", str(BASE_DIR / "tmp"))
 DATABASE_URL: str = _env_str("VLOG_DATABASE_URL",
                              f"sqlite:///{BASE_DIR / 'vlog.db'}")
+# The admin API's upload cap (api/admin_api.py: the app's
+# client_max_size and the streamed-size check).
+MAX_UPLOAD_SIZE_BYTES: int = _env_int(
+    "VLOG_MAX_UPLOAD_SIZE_GB", 50, lo=1, hi=1024
+) * 1024**3
 
 
 @dataclass(frozen=True)
@@ -122,6 +128,9 @@ MOTION_SEARCH_RADIUS: int = _env_int("VLOG_MOTION_SEARCH", 8, lo=1, hi=32)
 # "cabac" (Main profile) or "cavlc" (Baseline)
 H264_ENTROPY: str = _env_str("VLOG_H264_ENTROPY", "cabac")
 H264_DEBLOCK: bool = _env_bool("VLOG_H264_DEBLOCK", True)
+# AV1 delegated-encoder speed (libaom cpu-used 0-8 / SVT preset) of the
+# codec="av1" re-encode (backends/av1_path.py).
+AV1_SPEED: int = _env_int("VLOG_AV1_SPEED", 8, lo=0, hi=8)
 # HEVC (codec="h265"): 2NxN/Nx2N inter partitions (opt-in; partitioned
 # slices entropy-code in Python) and spec-8.7.2 in-loop deblocking.
 HEVC_PARTITIONS: bool = _env_bool("VLOG_HEVC_PARTITIONS", False)
@@ -156,6 +165,9 @@ PROFILE_MAX_S: float = _env_float("VLOG_PROFILE_MAX_S", 60.0, lo=1.0)
 
 # Disk admission floor (storage/integrity.py::under_pressure); 0 disables.
 MIN_FREE_DISK_BYTES: int = _env_int("VLOG_MIN_FREE_DISK_GB", 10, lo=0) * 1024**3
+# The admin API process's periodic orphan-GC sweep (storage/gc.py); 0
+# disables the loop (the admin trigger endpoint still works).
+GC_INTERVAL_S: float = _env_float("VLOG_GC_INTERVAL", 3600.0, lo=0.0)
 
 # Sprite sheets (worker/sprites.py), the JAX package's names and defaults.
 SPRITE_INTERVAL_S: float = _env_float("VLOG_SPRITE_INTERVAL", 10.0, lo=1.0)
@@ -275,6 +287,10 @@ METRICS_DB_TTL_S: float = _env_float("VLOG_METRICS_DB_TTL_S", 5.0, lo=0.0)
 # The public API (api/public_api.py): its port, and whether the source
 # upload (``original*``) is downloadable.
 PUBLIC_PORT: int = _env_int("VLOG_PUBLIC_PORT", 9000, lo=1, hi=65535)
+# The admin API (api/admin_api.py): its port, and the Secure flag of its
+# session cookie (set it behind TLS).
+ADMIN_PORT: int = _env_int("VLOG_ADMIN_PORT", 9001, lo=1, hi=65535)
+ADMIN_COOKIE_SECURE: bool = _env_bool("VLOG_ADMIN_COOKIE_SECURE", False)
 DOWNLOADS_ENABLED: bool = _env_bool("VLOG_DOWNLOADS_ENABLED", False)
 
 # The delivery plane under the public API's media route (delivery/): the

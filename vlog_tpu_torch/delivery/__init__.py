@@ -7,10 +7,9 @@ serving (see delivery/plane.py for the design note).
 Import surface for the rest of the codebase:
 
 - :class:`DeliveryPlane` — one per serving process (public API).
-- :func:`invalidate_slug` — called by the publish/re-encode/delete
-  paths; fans out to every plane registered in this process. (The
-  reference's ``invalidate_all`` serves its admin endpoint, which is not
-  ported, ROADMAP Queue A item 13d.)
+- :func:`invalidate_slug` / :func:`invalidate_all` — called by the
+  publish/re-encode/delete/verify paths and the admin endpoint; fan out
+  to every plane registered in this process.
 - :func:`prewarm_slug` — publish-time prewarm fan-out (finalize_ready).
 - :func:`stats_snapshot` — the admin stats panel's data source.
 """
@@ -37,6 +36,7 @@ from vlog_tpu_torch.delivery.plane import (
     PeerFillError,
     ServingState,
     has_planes,
+    invalidate_all,
     invalidate_slug,
     prewarm_slug,
     register,
@@ -61,6 +61,7 @@ __all__ = [
     "ServingState",
     "SingleFlight",
     "has_planes",
+    "invalidate_all",
     "invalidate_slug",
     "prewarm_slug",
     "probe_loop",

@@ -150,6 +150,12 @@ class SegmentCache:
             self._drop(k)
         return len(doomed)
 
+    def clear(self) -> int:
+        n = len(self._entries)
+        self._entries.clear()
+        self._bytes = 0
+        return n
+
     def _drop(self, key: Key) -> None:
         entry = self._entries.pop(key, None)
         if entry is not None:

@@ -259,6 +259,19 @@ class DiskL2:
         with self._lock:
             self.counters[key] += 1
 
+    def clear(self) -> int:
+        """Drop every entry (admin invalidate-all); returns count.
+        Not counted as evictions — a clear is an operator action, not
+        budget pressure."""
+        with self._lock:
+            victims = list(self._index)
+            self._index.clear()
+            self._heat.clear()
+            self._bytes = 0
+        for digest in victims:
+            self.path_for(digest).unlink(missing_ok=True)
+        return len(victims)
+
     def stats(self) -> dict:
         with self._lock:
             return {

@@ -19,8 +19,7 @@ viewer — touches neither Postgres nor ``open()``:
   rather than queueing unbounded reads on the volume;
 - **invalidation** — publish/re-encode/delete/restore/verify paths call
   :func:`invalidate_slug`, which fans out to every plane registered in
-  this process (the reference's operator endpoint ``POST
-  /api/delivery/invalidate`` belongs to the admin API, not ported).
+  this process (plus ``POST /api/delivery/invalidate`` for operators).
 
 Below and beside the RAM LRU sits the **distributed tier**:
 
@@ -980,6 +979,18 @@ class DeliveryPlane:
         runtime().delivery_cache_bytes.set(self.cache.bytes_cached)
         return n
 
+    def invalidate_all(self) -> int:
+        n = self.cache.clear()
+        self._states.clear()
+        with self._digest_lock:
+            self._digests.clear()
+        n += self.l2.clear()            # operator nuke clears disk too
+        self._fill_gen += 1
+        self._bump("invalidations")
+        runtime().delivery_cache_bytes.set(self.cache.bytes_cached)
+        runtime().delivery_l2_bytes.set(0)
+        return n
+
     def stats(self) -> dict:
         with self._counter_lock:
             counters = dict(self.counters)
@@ -1075,6 +1086,10 @@ def invalidate_slug(slug: str) -> int:
     serve no media — workers and the admin API call it unconditionally.
     """
     return sum(p.invalidate_slug(slug) for p in list(_PLANES))
+
+
+def invalidate_all() -> int:
+    return sum(p.invalidate_all() for p in list(_PLANES))
 
 
 def prewarm_slug(slug: str) -> int:

@@ -1,6 +1,7 @@
 """ISO-BMFF muxing: CMAF fMP4 (init segment + media segments) and
-progressive MP4 (the subset of ``vlog_tpu/media/fmp4.py`` the H.264 and
-HEVC ladder writers, the AAC renditions and the MP4 sources need).
+progressive MP4 (the subset of ``vlog_tpu/media/fmp4.py`` the H.264,
+HEVC and AV1 ladder writers, the AAC renditions and the MP4 sources
+need).
 
 One track per CMAF file, fixed timescale, movie fragments with one trun.
 """
@@ -68,6 +69,38 @@ def hvc1_sample_entry(width: int, height: int, hvcc: bytes) -> bytes:
         struct.pack(">h", -1),      # pre_defined
         box("hvcC", hvcc),
     )
+
+
+def av01_sample_entry(width: int, height: int, av1c: bytes) -> bytes:
+    """av01 + av1C (AV1-ISOBMFF 2.3): the AV1CodecConfigurationRecord
+    carries profile/level bits; the sequence header OBU rides in-band at
+    every keyframe temporal unit (configOBUs empty)."""
+    return box(
+        "av01",
+        b"\x00" * 6 + u16(1),       # reserved + data_reference_index
+        u16(0) + u16(0),            # pre_defined + reserved
+        b"\x00" * 12,               # pre_defined
+        u16(width) + u16(height),
+        u32(0x00480000) * 2,        # 72 dpi horiz/vert
+        u32(0),                     # reserved
+        u16(1),                     # frame_count
+        b"\x00" * 32,               # compressorname
+        u16(0x0018),                # depth = 24
+        struct.pack(">h", -1),      # pre_defined
+        box("av1C", av1c),
+    )
+
+
+def av1c_record(seq_profile: int, seq_level_idx: int, seq_tier: int,
+                high_bitdepth: bool = False) -> bytes:
+    """AV1CodecConfigurationRecord (AV1-ISOBMFF 2.3.3), no configOBUs."""
+    b0 = 0x81                                    # marker=1, version=1
+    b1 = ((seq_profile & 7) << 5) | (seq_level_idx & 0x1F)
+    b2 = ((seq_tier & 1) << 7) | ((1 if high_bitdepth else 0) << 6)
+    # twelve_bit=0 monochrome=0 chroma_subsampling_x/y=1,1 position=0
+    b2 |= (1 << 3) | (1 << 2)
+    b3 = 0                                       # no initial delay
+    return bytes([b0, b1, b2, b3])
 
 
 def _descriptor(tag: int, payload: bytes) -> bytes:

@@ -18,10 +18,12 @@ The worker-key hash (``argon2.c``: Argon2id, RFC 9106, over BLAKE2b)
 is a third library, built the same way by ``get_argon2_lib`` for
 ``api/auth.py``; it is the port's own code, not a copy.
 
-The libav ingest shim (``avshim.c``, a copy of the JAX package's) is a
-second, optional library: it links the system libavformat, libavcodec,
-libavutil and libswscale, and ``get_av_lib`` returns None where they are
-missing or ``VLOG_LIBAV=0`` disables it, as in the JAX package.
+The libav shim (``avshim.c``, the ingest shim, and ``av1enc.c``, the AV1
+encode shim, both copies of the JAX package's, built into one library
+as ``vlog_tpu/native/avbuild.py`` builds them) is a second, optional
+library: it links the system libavformat, libavcodec, libavutil and
+libswscale, and ``get_av_lib`` returns None where they are missing or
+``VLOG_LIBAV=0`` disables it, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -157,15 +159,16 @@ _AV_TRIED = False
 
 def _compile_av() -> Path:
     build = Path(ensure_compile_cache())
-    src = _DIR / "avshim.c"
+    srcs = [_DIR / "avshim.c", _DIR / "av1enc.c"]
     so = build / "libvt_av.so"
-    if so.exists() and so.stat().st_mtime >= src.stat().st_mtime:
+    if so.exists() and all(so.stat().st_mtime >= s.stat().st_mtime
+                           for s in srcs):
         return so
     tmp = build / f"libvt_av.{os.getpid()}.so.tmp"
     cc = os.environ.get("CC", "gcc")
-    _run_compiler([cc, "-O2", "-fPIC", "-shared", str(src), "-o", str(tmp),
-                   "-lavformat", "-lavcodec", "-lavutil", "-lswscale"],
-                  "avshim build", 1000)
+    _run_compiler([cc, "-O2", "-fPIC", "-shared", *map(str, srcs), "-o",
+                   str(tmp), "-lavformat", "-lavcodec", "-lavutil",
+                   "-lswscale"], "avshim build", 1000)
     os.replace(tmp, so)
     return so
 
@@ -198,6 +201,21 @@ def get_av_lib() -> ctypes.CDLL | None:
         lib.vt_av_close.argtypes = [ctypes.c_void_p]
         lib.vt_av_audio_to_f32.restype = ctypes.c_int64
         lib.vt_av_audio_to_f32.argtypes = [ctypes.c_char_p, ctypes.c_char_p]
+        lib.vt_av1_open.restype = ctypes.c_void_p
+        lib.vt_av1_open.argtypes = [ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_int64, ctypes.c_int,
+                                    ctypes.c_int]
+        lib.vt_av1_send.restype = ctypes.c_int
+        lib.vt_av1_send.argtypes = [ctypes.c_void_p, u8, u8, u8, ctypes.c_int]
+        lib.vt_av1_flush.restype = ctypes.c_int
+        lib.vt_av1_flush.argtypes = [ctypes.c_void_p]
+        lib.vt_av1_receive.restype = ctypes.c_int64
+        lib.vt_av1_receive.argtypes = [
+            ctypes.c_void_p, u8, ctypes.c_int64,
+            ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int64)]
+        lib.vt_av1_close.restype = None
+        lib.vt_av1_close.argtypes = [ctypes.c_void_p]
         _AV_LIB = lib
         return _AV_LIB
 

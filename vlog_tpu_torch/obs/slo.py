@@ -31,8 +31,7 @@ Three source kinds cover every objective without new instrumentation:
   straight to the waterfall of a job that burned it.
 
 Evaluation results are exported as the ``vlog_slo_*`` gauge families,
-served by ``GET /api/slo`` (the Worker API; the reference's admin API
-and its background evaluation loop are not ported), and read back by the
+served by ``GET /api/slo`` (admin + worker APIs), and read back by the
 fleet autoscale signal: :func:`alerting_objectives` is sync and cheap,
 and ``jobs/qos.fleet_snapshot`` floors the scale hint at +1 while any
 objective alerts (a burning SLO means the fleet is behind even if the
@@ -49,6 +48,7 @@ and the snapshot ring is pruned past the slow window.
 
 from __future__ import annotations
 
+import asyncio
 import logging
 import threading
 import time
@@ -498,3 +498,34 @@ def alerting_objectives() -> list[str]:
     except Exception:   # noqa: BLE001 — observability must not break qos
         return []
 
+
+async def eval_loop(db: Any, sink: Any = None) -> None:
+    """Background evaluation (admin process): keeps the burn windows
+    populated between scrapes and fires one rate-limited webhook per
+    alerting objective. ``VLOG_SLO_EVAL_S=0`` disables the loop;
+    ``GET /api/slo`` still evaluates on demand."""
+    interval = config.SLO_EVAL_S
+    if interval <= 0:
+        return
+    while True:
+        await asyncio.sleep(interval)
+        try:
+            report = await plane().evaluate(db)
+            if sink is not None:
+                for o in report["objectives"]:
+                    if not o["alerting"]:
+                        continue
+                    fast = o["windows"]["fast"]["burn_rate"]
+                    slow = o["windows"]["slow"]["burn_rate"]
+                    await sink.send(
+                        "slo_burn",
+                        f"objective {o['name']} burning error budget at "
+                        f"{fast}x (fast) / {slow}x (slow)",
+                        {"objective": o["name"], "plane": o["plane"],
+                         "target": o["target"],
+                         "burn_fast": fast, "burn_slow": slow},
+                        key=f"slo_burn:{o['name']}")
+        except asyncio.CancelledError:
+            raise
+        except Exception:   # noqa: BLE001 — the loop must survive
+            log.warning("slo evaluation failed", exc_info=True)

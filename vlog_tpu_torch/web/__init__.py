@@ -1,18 +1,19 @@
-"""First-party web UI served by the public API (a copy of the public half
-of ``vlog_tpu/web``; the admin UI is not ported, ROADMAP Queue A item
-13d).
+"""First-party web UIs (public + admin), served by the API processes (a
+copy of ``vlog_tpu/web``; ``public/*``, ``admin/*`` and
+``shared/style.css`` are byte copies of the JAX package's).
 
-Reference parity: web/public (browse/watch SPA), which the reference
-builds from TypeScript + Tailwind via a node toolchain. Here the UI is
-dependency-free vanilla HTML/CSS/JS served straight from the package —
-no build step — and video playback is a first-party MSE player
-(``public/player.js``) that speaks the CMAF/fMP4 HLS this framework
-emits (master playlist -> variant + audio-group playlists -> EXT-X-MAP
-init + m4s appends). ``public/*`` and ``shared/style.css`` are byte
-copies of the JAX package's.
+Reference parity: web/public (browse/watch SPA) and web/admin
+(dashboard/videos/jobs/workers/settings/webhooks SPA), which the
+reference builds from TypeScript + Tailwind via a node toolchain. Here
+the UIs are dependency-free vanilla HTML/CSS/JS served straight from
+the package — no build step — and video playback is a first-party MSE
+player (``public/player.js``) that speaks the CMAF/fMP4 HLS this
+framework emits (master playlist -> variant + audio-group playlists ->
+EXT-X-MAP init + m4s appends), since the reference's <video> tag relies
+on hls.js which we do not vendor.
 
-The public app mounts :func:`attach_ui`, which serves ``index.html`` at
-``/`` and assets under ``/ui/``.
+Both API apps mount :func:`attach_ui`, which serves ``index.html`` at
+``/`` and hashed assets under ``/ui/``.
 """
 
 from __future__ import annotations
@@ -48,7 +49,7 @@ def _asset_response(path: Path) -> web.Response:
 
 
 def attach_ui(app: web.Application, which: str) -> None:
-    """Mount the ``which`` UI (``"public"``) on an aiohttp app."""
+    """Mount the ``which`` ("public" | "admin") UI on an aiohttp app."""
     root = WEB_ROOT / which
     if not root.is_dir():  # pragma: no cover - packaging error
         raise FileNotFoundError(root)
@@ -68,3 +69,14 @@ def attach_ui(app: web.Application, which: str) -> None:
     app.router.add_get("/", index)
     app.router.add_get("/ui/{tail:.+}", asset)
 
+
+UI_EXEMPT_PREFIXES = ("/ui/",)
+
+
+def is_ui_path(path: str) -> bool:
+    """True for routes that serve static UI shell (no data, no secrets).
+
+    The admin auth middleware exempts these so a browser can load the
+    login shell; every ``/api/*`` call still requires the admin secret.
+    """
+    return path == "/" or any(path.startswith(p) for p in UI_EXEMPT_PREFIXES)
