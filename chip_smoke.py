@@ -8,6 +8,11 @@ Phases (any failure exits non-zero; none is caught):
 2. build the fused resize kernel (nvcc, sm_90a) and the native entropy
    coders (CABAC, CAVLC, JPEG scan) from the checkout's sources, the two
    builds started together, timed;
+2a. analysis: the port's static-analysis passes
+   (``vlog_tpu_torch.analysis.run_passes``) over the checkout's
+   ``vlog_tpu_torch/`` on this machine's Python: the count of findings
+   printed, any finding outside the port's baseline
+   (``vlog_tpu_torch/analysis/BASELINE.txt``) fails the run;
 3. the kernel against its plain PyTorch version on the card at every
    rung shape of the 1080p ladder (Y and chroma) and at every frame
    count a backend phase calls it with (24, 8, 6, 4 and 1), and at the
@@ -40,8 +45,9 @@ Phases (any failure exits non-zero; none is caught):
    coefficients' bound;
 6. intra: the same source, ``gop_mode="intra"``, 8 frames (one
    dispatch), default ladder: 9 launches, the tree parses, PSNR floor;
-7. pipeline: the first 4 samples of the slice's 1080p rung (1 IDR + 3
-   P, CABAC, deblocked, its rate control's QPs), taken from its CMAF
+7. pipeline: the first 3 samples of the slice's 1080p rung (1 IDR + 2
+   P, CABAC, deblocked, its rate control's QPs; cut from 4 for time),
+   taken from its CMAF
    segment with the avcC of its init segment, with an AAC track as long
    as the video (a seeded stereo 48 kHz signal encoded by the port's
    ``AacEncoder`` on the card), written as a progressive MP4 by the
@@ -98,6 +104,18 @@ Phases (any failure exits non-zero; none is caught):
    everything after the MDCT per audio second; ``forward_mdct`` alone on
    a 30 s chunk ((2, 1408, 2048) x (2048, 1024) float32, TF32 off),
    device ms against its bound; no resize launch;
+10c-10d run under the port's lock witness (``utils/locktrace.py``:
+   installed before the runtime phase builds its scheduler and
+   executors, uninstalled after the daemon phase): every annotated lock
+   the two phases construct is a witness that checks the ``# lock-order:``
+   ranks and walks the waits-for graph while blocked; printed: the
+   witnesses built, the acquisitions, the reports, the five locks with
+   the most wait seconds and the five with the most hold seconds
+   (``vlog_lock_wait_seconds``/``vlog_lock_hold_seconds``), and both
+   phases' walls beside WITNESS_BASE_WALLS (the same phases without the
+   witness); any report, or a witness that covered nothing, fails the
+   run, and reports are checked again at the end (the daemon phase's
+   scheduler keeps its witnesses in the later phases);
 10c. runtime (the device runtime): HEVC on the 24-frame source at
    depths 1 and 2 (``VLOG_PIPELINE_DEPTH``) with the 4-rung ladder at
    constant QP in four 6-frame dispatches: byte-identical trees (the
@@ -234,9 +252,10 @@ Phases (any failure exits non-zero; none is caught):
    ``MeshScheduler`` lease at ``VLOG_TPU_MESH=data:1,rung:4`` (one rung
    per column, 1x4): the tree byte-identical to the slice phase's, 12
    launches; ``process_video(codec="h265")`` on the 24-frame source at
-   2x2 and 4x1 (each column's one real chain padded to the data width):
-   the trees byte-identical to the hevc phase's, 21 and 39 launches (per
-   column: data width x scaled rungs x 3, + 3 for the thumbnail); the
+   2x2 (each column's one real chain padded to the data width; the 4x1
+   run was cut for time): the tree byte-identical to the hevc
+   phase's, 21 launches (per column: data width x scaled rungs x 3, + 3
+   for the thumbnail); the
    ASR engine on the asr phase's 2 live windows (greedy, 64 tokens, one
    batch) on a 1-wide and a 2-wide lease (a row on each device): the
    same tokens, rows a multiple of 2; ``dryrun.run(2, devices=[cuda:0] *
@@ -295,7 +314,7 @@ SRC_H, SRC_W = 1080, 1920
 FRAMES = 24             # one full 24-frame I+P chain: one dispatch
 SLICE_FRAMES = 6        # the slice: one I+P chain cut to 6 frames
 INTRA_FRAMES = 8        # one intra dispatch (frame_batch 8)
-MP4_FRAMES = 4          # samples of the I+P MP4 (1 IDR + 3 P: a cut chain)
+MP4_FRAMES = 3          # samples of the I+P MP4 (1 IDR + 2 P: a cut chain)
 SEEK_FRAME = 1          # read mid-GOP on a fresh source
 SPRITE_INTRA_FRAMES = 8  # samples of the all-intra MP4 (one decode chunk)
 SHORT_SEG_S = 0.25      # resume and TS: 6-frame segments and chains,
@@ -325,7 +344,7 @@ COMPARE_N = tuple(dict.fromkeys((FRAMES, SLICE_FRAMES, INTRA_FRAMES,
 SPRITE_SHAPES = (((SRC_H, SRC_W), (90, 160)),
                  ((SRC_H // 2, SRC_W // 2), (45, 80)))
 SPRITE_N = (8, 2, 1)
-SPRITE_SKIP_INTERVAL_S = 2 / 24     # tiles at frames 0 and 2 of 4
+SPRITE_SKIP_INTERVAL_S = 2 / 24     # tiles at frames 0 and 2 of 3
 
 # AAC: the MP4 sources' track, and the aac phase (one default 6 s
 # segment at 128 kbps: 283 payloads with the priming frame)
@@ -501,6 +520,107 @@ class DeviceTimer:
 
 
 # ---------------------------------------------------------------------------
+def phase_analysis() -> int:
+    """The port's static-analysis gate over the checkout's package; fails
+    on any finding outside the port's baseline."""
+    from vlog_tpu_torch.analysis import (default_baseline, load_baseline,
+                                         run_passes)
+
+    pkg = ROOT / "vlog_tpu_torch"
+    t0 = time.perf_counter()
+    findings = run_passes(pkg)
+    known = load_baseline(default_baseline(pkg))
+    fresh = [f for f in findings if f.key not in known]
+    log(f"analysis: {len(findings)} finding(s) over vlog_tpu_torch/, "
+        f"{len(findings) - len(fresh)} baselined, {len(fresh)} not, in "
+        f"{time.perf_counter() - t0:.2f} s on Python "
+        f"{sys.version.split()[0]}")
+    for f in fresh:
+        log("  " + f.render())
+    if fresh:
+        fail(f"analysis: {len(fresh)} finding(s) outside the port's "
+             f"baseline")
+    return len(findings)
+
+
+# The runtime and daemon phases' walls without the witness: the last
+# smoke run before it (NVIDIA H100 80GB HBM3, 700.00 W).
+WITNESS_BASE_WALLS = {"runtime": 99.03, "daemon": 121.64}
+WITNESS_TOP = 5
+
+
+def _lock_seconds(family: str) -> dict[str, tuple[float, float]]:
+    """lock name -> (total seconds, samples) of one witness histogram."""
+    from vlog_tpu_torch.obs.metrics import runtime
+
+    out: dict[str, list[float]] = {}
+    for fam in getattr(runtime(), family).collect():
+        for smp in fam.samples:
+            lock = smp.labels.get("lock")
+            if lock is None:
+                continue
+            if smp.name.endswith("_sum"):
+                out.setdefault(lock, [0.0, 0.0])[0] = smp.value
+            elif smp.name.endswith("_count"):
+                out.setdefault(lock, [0.0, 0.0])[1] = smp.value
+    return {k: (v[0], v[1]) for k, v in out.items()}
+
+
+def witness_start() -> dict:
+    """Install the port's lock witness; return the counters to diff."""
+    from vlog_tpu_torch.utils import locktrace
+
+    t0 = time.perf_counter()
+    patched = locktrace.install()
+    log(f"witness: installed over {len(patched)} modules in "
+        f"{time.perf_counter() - t0:.2f} s")
+    return {"stats": locktrace.stats(),
+            "wait": _lock_seconds("lock_wait_seconds"),
+            "hold": _lock_seconds("lock_hold_seconds")}
+
+
+def _witness_reports(before: int) -> None:
+    from vlog_tpu_torch.utils import locktrace
+
+    fresh = locktrace.reports()[before:]
+    for r in fresh:
+        log(r.render())
+    if fresh:
+        fail(f"witness: {len(fresh)} report(s): "
+             + "; ".join(r.message for r in fresh))
+
+
+def witness_end(base: dict, phase_s: dict) -> None:
+    """Uninstall the witness, print what it saw, fail on any report."""
+    from vlog_tpu_torch.utils import locktrace
+
+    locktrace.uninstall()
+    now = locktrace.stats()
+    seen = {k: now[k] - base["stats"][k] for k in now}
+    log("witness: " + json.dumps(seen) + " (built: witnesses constructed; "
+        "acquisitions: completed acquire/release pairs)")
+    for family, key in (("lock_wait_seconds", "wait"),
+                        ("lock_hold_seconds", "hold")):
+        cur = _lock_seconds(family)
+        delta = {k: (v[0] - base[key].get(k, (0.0, 0.0))[0],
+                     v[1] - base[key].get(k, (0.0, 0.0))[1])
+                 for k, v in cur.items()}
+        top = sorted(delta.items(), key=lambda kv: -kv[1][0])[:WITNESS_TOP]
+        log(f"witness top {WITNESS_TOP} by {key} seconds: " + json.dumps(
+            [{"lock": k, "seconds": round(v[0], 6), "samples": int(v[1])}
+             for k, v in top]))
+    walls = {name: {"wall_s": phase_s[name],
+                    "without_witness_s": WITNESS_BASE_WALLS[name],
+                    "ratio": round(phase_s[name] / WITNESS_BASE_WALLS[name],
+                                   4)}
+             for name in WITNESS_BASE_WALLS}
+    log("witness walls " + json.dumps(walls))
+    if seen["built"] <= 0 or seen["acquisitions"] <= 0:
+        fail("witness: no lock of the runtime or daemon phase was a "
+             "witness")
+    _witness_reports(base["stats"]["reports"])
+
+
 def phase_build():
     from vlog_tpu_torch.native import build as native_build
     from vlog_tpu_torch.ops import fused_resize
@@ -4137,7 +4257,8 @@ def phase_admin(work: Path, sources: dict) -> int:
 GRID_WIDTH = 4               # [cuda:0] * 4: one card, four logical devices
 GRID_DRYRUN_WIDTH = 2        # the dry run's logical devices (3 shapes)
 GRID_H264_SPEC = "data:1,rung:4"
-GRID_HEVC_SPECS = ("data:2,rung:2", "data:4,rung:1")
+# 2x2 keeps the padded data axis and the rung split (4x1 cut for time)
+GRID_HEVC_SPECS = ("data:2,rung:2",)
 GRID_ASR_WIDTH = 2
 GRID_ASR_BATCH = ASR_LIVE    # the live windows in one batch, split 1 + 1
 GRID_ASR_MAX_NEW = 64
@@ -4268,8 +4389,8 @@ def _grid_hold(seen: dict) -> dict:
 
 def phase_grid(work: Path, sources: dict) -> int:
     """The (data x rung) grid on one card as GRID_WIDTH logical devices:
-    the slice's H.264 run on a 1x4 grid, the hevc phase's run on 2x2 and
-    4x1 grids (trees byte-identical to those phases'), the ASR engine on
+    the slice's H.264 run on a 1x4 grid, the hevc phase's run on a 2x2
+    grid (trees byte-identical to those phases'), the ASR engine on
     a 2-wide lease, and the dry run (its PSNR against a CPU run)."""
     from vlog_tpu_torch.backends import get_backend
     from vlog_tpu_torch.backends.torch_backend import TorchBackend
@@ -4331,7 +4452,7 @@ def phase_grid(work: Path, sources: dict) -> int:
                               _tree_files(work / "slice"))}
         total += launches
 
-        # -- HEVC: the hevc phase's run on 2x2 and 4x1 grids --------------
+        # -- HEVC: the hevc phase's run on the 2x2 grid ---------------------
         hsrc = sources[FRAMES]
         hevc_ref = _tree_files(work / "hevc")
         hplan = backend.plan(get_video_info(hsrc), out_dir=work / "unused",
@@ -4435,6 +4556,7 @@ def main() -> int:
         return value
 
     timed("build", phase_build)
+    timed("analysis", phase_analysis)
     from vlog_tpu_torch.parallel.compile_cache import compile_seconds
 
     compile_cold = compile_seconds()      # this process's builds
@@ -4464,9 +4586,11 @@ def main() -> int:
     launches["resume"] = timed("resume", phase_resume, sources[RESUME_FRAMES])
     launches["ts"] = timed("ts", phase_ts, sources[TS_FRAMES])
     launches["hevc"] = timed("hevc", phase_hevc, sources[FRAMES], work)
+    witness = witness_start()
     launches["runtime"] = timed("runtime", phase_runtime, sources, work,
                                 compile_cold)
     launches["daemon"] = timed("daemon", phase_daemon, work, ip_path, sources)
+    witness_end(witness, phase_s)
     launches["remote"] = timed("remote", phase_remote, work, ip_path, sources)
     launches["serve"] = timed("serve", phase_serve, work, sources)
     launches["admin"] = timed("admin", phase_admin, work, sources)
@@ -4475,8 +4599,10 @@ def main() -> int:
     launches["grid"] = timed("grid", phase_grid, work, sources)
     shutil.rmtree(work, ignore_errors=True)
     timed("breakdown", phase_breakdown)
+    _witness_reports(witness["stats"]["reports"])
     log("launches by phase " + json.dumps(launches))
     log("phase seconds " + json.dumps(phase_s))
+    log(f"phase seconds sum {sum(phase_s.values()):.2f}")
 
     log(json.dumps({"kernels": [{
         "name": "fused_resize_plane", "route": "cuda",

@@ -11,7 +11,8 @@ facade and its wire-protocol double, the delivery plane, the public API
 and its UI) and the multi-device grid's (the mesh, the ladder grids and
 the dry run) and the admin plane's (the admin API, the catalog, the audit
 log, the sessions, chapters and codec strings, the console client) and
-the AV1 path's (the OBU parser, the delegated encode).
+the AV1 path's (the OBU parser, the delegated encode) and the tooling's
+(the analysis passes, the lock witness, the bench-trend gate).
 """
 
 from __future__ import annotations
@@ -45,7 +46,23 @@ HTTP_PLANE = ("vlog_tpu_torch.api.worker_api", "vlog_tpu_torch.api.auth",
               "vlog_tpu_torch.media.chapters", "vlog_tpu_torch.media.codecstr",
               "vlog_tpu_torch.cli", "vlog_tpu_torch.cli.main",
               # the AV1 re-encode
-              "vlog_tpu_torch.codecs.av1", "vlog_tpu_torch.backends.av1_path")
+              "vlog_tpu_torch.codecs.av1", "vlog_tpu_torch.backends.av1_path",
+              # the tooling over the sources: the analysis passes, the
+              # lock witness and the bench-trend gate
+              "vlog_tpu_torch.analysis", "vlog_tpu_torch.analysis.__main__",
+              "vlog_tpu_torch.analysis.core",
+              "vlog_tpu_torch.analysis.asyncblock",
+              "vlog_tpu_torch.analysis.epochfence",
+              "vlog_tpu_torch.analysis.holdblock",
+              "vlog_tpu_torch.analysis.lockdiscipline",
+              "vlog_tpu_torch.analysis.lockorder",
+              "vlog_tpu_torch.analysis.meshshim",
+              "vlog_tpu_torch.analysis.pallasshim",
+              "vlog_tpu_torch.analysis.registry",
+              "vlog_tpu_torch.analysis.slowlane",
+              "vlog_tpu_torch.analysis.tracehop",
+              "vlog_tpu_torch.utils.locktrace",
+              "vlog_tpu_torch.obs.benchtrend")
 
 _BLOCKED_IMPORT_SCRIPT = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys

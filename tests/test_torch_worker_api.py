@@ -109,6 +109,11 @@ async def _start(pkg: str, tmp: Path, *, middleware=None) -> Env:
            "commands": imp(f"{pkg}.jobs.commands"),
            "api": imp(f"{pkg}.api.worker_api"),
            "config": imp(f"{pkg}.config")}
+    # The SLO plane is a process-wide singleton: its snapshot ring and
+    # last report would carry what earlier tests in this process observed
+    # into one package's /api/slo and scale hint and not the other's.
+    # Each server starts from a fresh plane.
+    imp(f"{pkg}.obs.slo").reset_plane()
     tmp.mkdir(parents=True)
     db = dbm.Database(f"sqlite:///{tmp / 'vlog.db'}")
     await db.connect()

@@ -382,7 +382,7 @@ class Thumbnailer:
     def __init__(self, device: str = "cuda"):
         self.device = device
         self._backend = None
-        self._lock = threading.Lock()
+        self._lock = threading.Lock()             # lock-order: 5
 
     def backend(self):
         from vlog_tpu_torch.backends.torch_backend import TorchBackend

@@ -61,7 +61,7 @@ class KVCachePool:
     _MAX_PAGES = 8          # retained pages across all shapes
 
     def __init__(self) -> None:
-        self._lock = threading.Lock()
+        self._lock = threading.Lock()             # lock-order: 24
         self._pages: dict[tuple, list[DecoderCache]] = {}  # guarded-by: _lock
         self.allocs = 0     # fresh page materializations
         self.reuses = 0     # leases served from the pool

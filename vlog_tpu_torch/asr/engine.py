@@ -46,6 +46,7 @@ from vlog_tpu_torch.asr.load import WhisperAssets, load_whisper, replica_on
 from vlog_tpu_torch.asr.queue import BatchKey, WindowQueue, WorkItem
 from vlog_tpu_torch.asr.vtt import Cue
 from vlog_tpu_torch.obs.metrics import runtime
+from vlog_tpu_torch.parallel.mesh import visible_cuda_devices
 from vlog_tpu_torch.utils import failpoints
 
 
@@ -287,10 +288,10 @@ class AsrEngine:
         mesh); else the engine's own device."""
         if lease is not None:
             return [torch.device(d) for d in lease.devices]
-        if (self.scheduler is None and self.device.type == "cuda"
-                and torch.cuda.device_count() > 1):
-            return [torch.device("cuda", i)
-                    for i in range(torch.cuda.device_count())]
+        if self.scheduler is None and self.device.type == "cuda":
+            cards = visible_cuda_devices()
+            if len(cards) > 1:
+                return cards
         return [self.device]
 
     def _tick(self, key: BatchKey, items: list[WorkItem], lease=None) -> None:

@@ -64,12 +64,13 @@ class WhisperAssets:
     tokenizer: "ByteLevelDecoder"
     tokens: SpecialTokens
     model_name: str
-    # device -> these weights on another device (:func:`replica_on`)
+    # device -> these weights on another device (:func:`replica_on`),
+    # under the module's _replica_lock
     replicas: dict = field(default_factory=dict, repr=False,
-                           compare=False)   # guarded-by: _replica_lock
+                           compare=False)
 
 
-_replica_lock = threading.Lock()        # lock-order: 24
+_replica_lock = threading.Lock()
 
 
 def replica_on(assets: WhisperAssets, device) -> WhisperAssets:
@@ -332,7 +333,7 @@ def derive_special_tokens(tokenizer, hf_cfg: dict,
 # quant mode, device): a swapped-in checkpoint at the same path is picked
 # up without a restart, and f32/int8 or CPU/CUDA callers never share a
 # model.
-_cache: dict[tuple[str, int, str, str], WhisperAssets] = {}  # guarded-by: _cache_lock
+_cache: dict[tuple[str, int, str, str], WhisperAssets] = {}  # under _cache_lock
 _cache_lock = threading.Lock()
 
 

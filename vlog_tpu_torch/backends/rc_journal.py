@@ -108,13 +108,20 @@ class RCJournal:
             if batch_index < self._next:
                 return          # replayed prefix: already on disk
             self._buf.setdefault(batch_index, {})[rung] = obs
+            # The append stays under the lock on purpose: the file's
+            # byte-reproducibility contract is "lines in batch-index
+            # order", and the only thing serializing competing consumer
+            # threads' drains IS this lock. Lines are ~100 buffered
+            # bytes — the hold is microseconds, and the alternative (a
+            # second writer lock held across the same write) is the
+            # same blocking with more states.
             while set(self._buf.get(self._next, ())) >= want:
                 line = _dump({"k": self._next,
                               "obs": self._buf.pop(self._next)})
                 if self._fp is None:
-                    self._fp = open(self.path, "a")
-                self._fp.write(line + "\n")
-                self._fp.flush()
+                    self._fp = open(self.path, "a")    # holds-ok: canonical append order needs the drain serialized
+                self._fp.write(line + "\n")            # holds-ok: canonical append order needs the drain serialized
+                self._fp.flush()                       # holds-ok: canonical append order needs the drain serialized
                 self._next += 1
 
     def close(self) -> None:

@@ -102,6 +102,7 @@ from vlog_tpu_torch.parallel.executor import (DecodePrefetch,
 from vlog_tpu_torch.parallel.ladder import (ladder_chain_grid,
                                             ladder_encode_grid,
                                             ladder_matrices, mats_from_numpy)
+from vlog_tpu_torch.parallel.mesh import visible_cuda_devices
 from vlog_tpu_torch.parallel.scheduler import (host_pool_for_run,
                                                placement_for_run)
 from vlog_tpu_torch.utils import failpoints
@@ -132,7 +133,8 @@ class TorchBackend:
         dev = resolve_device(self.device)
         if dev.type == "cuda":
             props = torch.cuda.get_device_properties(dev)
-            kind, count, mem = "gpu", torch.cuda.device_count(), props.total_memory
+            kind, count, mem = ("gpu", len(visible_cuda_devices()),
+                                props.total_memory)
             names = [props.name]
         else:
             kind, count, mem, names = "cpu", 1, None, ["cpu"]

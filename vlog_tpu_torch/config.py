@@ -284,6 +284,12 @@ CLAIM_RECHECK_S: float = _env_float("VLOG_CLAIM_RECHECK_S", 2.0, lo=0.1)
 HEARTBEAT_FLUSH_S: float = _env_float("VLOG_HEARTBEAT_FLUSH_S", 0.0, lo=0.0)
 METRICS_DB_TTL_S: float = _env_float("VLOG_METRICS_DB_TTL_S", 5.0, lo=0.0)
 
+# Default fractional tolerance for the bench-trend regression gate
+# (obs/benchtrend.py): the latest record of a series may fall this far
+# below the best prior (or rise this far above it for lower-is-better
+# metrics) before it flags. Per-metric overrides live in the module.
+BENCHTREND_TOL: float = _env_float("VLOG_BENCHTREND_TOL", 0.5, lo=0.01)
+
 # The public API (api/public_api.py): its port, and whether the source
 # upload (``original*``) is downloadable.
 PUBLIC_PORT: int = _env_int("VLOG_PUBLIC_PORT", 9000, lo=1, hi=65535)

@@ -90,6 +90,19 @@ class RuntimeMetrics:
             "vlog_rung_duration_seconds",
             "Per-rung consume busy seconds of one transcode run",
             ["rung"], buckets=STAGE_BUCKETS, registry=self.registry)
+        # Lock witness (utils/locktrace.py): per-lock wait/hold profiles,
+        # labeled by the static lock-order name. Only populated while the
+        # witness is installed; contention lives well under the
+        # transcode-stage scale, so the buckets start at microseconds.
+        _lock_buckets = (1e-5, 1e-4, 1e-3, 1e-2, 0.1, 0.5, 2.0, 10.0)
+        self.lock_wait_seconds = Histogram(
+            "vlog_lock_wait_seconds",
+            "Seconds spent waiting to acquire a sanitized lock",
+            ["lock"], buckets=_lock_buckets, registry=self.registry)
+        self.lock_hold_seconds = Histogram(
+            "vlog_lock_hold_seconds",
+            "Seconds a sanitized lock was held per acquisition",
+            ["lock"], buckets=_lock_buckets, registry=self.registry)
         self.pipeline_gauges = Gauge(
             "vlog_pipeline_gauge",
             "Last run's pipeline overlap gauges (pipeline_depth, "

@@ -88,7 +88,7 @@ class _Session:
         from torch.profiler import ProfilerActivity, profile
 
         activities = [ProfilerActivity.CPU]
-        if torch.cuda.is_available():
+        if torch.cuda.is_available():  # meshshim-ok: which activities to trace, not a device choice
             activities.append(ProfilerActivity.CUDA)
         try:
             prof = profile(activities=activities, experimental_config=
@@ -124,7 +124,7 @@ class DeviceProfiler:
               label: str = "") -> dict:
         """Start one bounded trace session; returns the session info or
         an ``{"error": ...}`` dict (command-channel style, never raises)."""
-        if torch.cuda.is_available() and not torch.cuda.is_initialized():
+        if torch.cuda.is_available() and not torch.cuda.is_initialized():  # meshshim-ok: refuses a session with nothing on the card to trace; chooses no device
             _bump("rejected")
             return {"error": "CUDA is not initialized in this process; "
                              "nothing to profile (run a job first)"}

@@ -40,6 +40,8 @@ import time
 import numpy as np
 import torch
 
+from vlog_tpu_torch.parallel.mesh import visible_cuda_devices
+
 RUNGS = (("64p", 64, 96, 28), ("32p", 32, 48, 30))
 # enough rungs for a real rung axis (up to 4 columns); all fit 96x128
 SWEEP_RUNGS = (("96p", 96, 128, 26), ("64p", 64, 96, 28),
@@ -49,7 +51,7 @@ SRC_H, SRC_W, CLEN = 96, 128, 3
 
 def _devices(n_devices: int, devices) -> list:
     if devices is None:
-        have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        have = len(visible_cuda_devices())
         if have < n_devices:
             raise RuntimeError(f"need {n_devices} CUDA devices, have {have} "
                                "(pass devices= to run on others)")

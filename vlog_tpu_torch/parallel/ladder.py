@@ -304,8 +304,8 @@ class GridProgram:
 
 
 # (kind, geometry, options, grid layout) -> GridProgram, most recent last
-_GRIDS: OrderedDict = OrderedDict()     # guarded-by: _GRIDS_LOCK
-_GRIDS_LOCK = threading.Lock()          # lock-order: 14
+_GRIDS: OrderedDict = OrderedDict()     # under _GRIDS_LOCK
+_GRIDS_LOCK = threading.Lock()
 _GRIDS_MAX = 8
 
 

@@ -63,11 +63,20 @@ class Mesh:
         return dict(zip(self.axis_names, self.devices.shape))
 
 
+def visible_cuda_devices() -> list[torch.device]:
+    """Every visible CUDA device, each once (empty without CUDA: the
+    count is 0 there). With ``device.py::resolve_device`` this is the
+    port's one place that asks torch which cards there are (the
+    ``meshshim`` analysis pass keeps it so)."""
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
 def _cuda_devices() -> list[torch.device]:
-    if not torch.cuda.is_available():
+    devices = visible_cuda_devices()
+    if not devices:
         raise RuntimeError("no CUDA device: pass the mesh's devices "
                            "explicitly")
-    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return devices
 
 
 def _device_array(devices: list, shape) -> np.ndarray:

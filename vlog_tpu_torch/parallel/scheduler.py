@@ -46,6 +46,7 @@ from typing import Sequence
 import torch
 
 from vlog_tpu_torch import config
+from vlog_tpu_torch.parallel.mesh import visible_cuda_devices
 
 __all__ = [
     "MeshScheduler", "SlotCancelled", "SlotLease", "SlotTicket",
@@ -88,7 +89,7 @@ def mesh_for_run():
         # a plain data axis sized to the slot: a VLOG_TPU_MESH spec is
         # sized for the full device count
         return make_mesh("data:-1", devices=list(lease.devices))
-    return make_mesh() if torch.cuda.device_count() > 1 else None
+    return make_mesh() if len(visible_cuda_devices()) > 1 else None
 
 
 def grid_for_run(rungs, batch_hint: int | None = None, devices=None):
@@ -109,8 +110,7 @@ def grid_for_run(rungs, batch_hint: int | None = None, devices=None):
     if lease is not None:
         devices = list(lease.devices)
     elif devices is None:
-        devices = [torch.device("cuda", i)
-                   for i in range(torch.cuda.device_count())]
+        devices = visible_cuda_devices()
     else:
         devices = list(devices)
     if len(devices) <= 1:
@@ -144,7 +144,7 @@ def placement_for_run(default: torch.device, rungs=(),
     lease = current_lease()
     if lease is None:
         if (default.type == "cuda" and default.index is None
-                and torch.cuda.device_count() > 1):
+                and len(visible_cuda_devices()) > 1):
             # a ladder-less caller (no rungs) asks for the device alone
             return (torch.device("cuda", 0),
                     grid_for_run(rungs, batch_hint=batch_hint)
@@ -297,11 +297,10 @@ class MeshScheduler:
     def __init__(self, devices: Sequence | None = None,
                  slots: int | None = None):
         if devices is None:
-            if not torch.cuda.is_available():
+            devices = visible_cuda_devices()
+            if not devices:
                 raise RuntimeError("MeshScheduler needs CUDA devices (or an "
                                    "explicit device list)")
-            devices = [torch.device("cuda", i)
-                       for i in range(torch.cuda.device_count())]
         self.devices = tuple(devices)
         want = config.MESH_SLOTS if slots is None else int(slots)
         self._want_slots = max(1, want)

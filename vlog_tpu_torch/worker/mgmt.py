@@ -71,10 +71,12 @@ def _device_info() -> dict:
     if torch is None or not torch.cuda.is_initialized():
         return {"initialized": False}
     try:
+        from vlog_tpu_torch.parallel.mesh import visible_cuda_devices
+
         dev = torch.cuda.current_device()
         _free, total = torch.cuda.mem_get_info(dev)
         return {"initialized": True, "platform": "cuda",
-                "device_count": torch.cuda.device_count(),
+                "device_count": len(visible_cuda_devices()),
                 "bytes_in_use": int(torch.cuda.memory_allocated(dev)),
                 "bytes_limit": int(total)}
     except Exception:   # noqa: BLE001 — metrics are best-effort

@@ -24,6 +24,7 @@ from vlog_tpu_torch import config
 from vlog_tpu_torch.asr import mel as melmod
 from vlog_tpu_torch.asr.vtt import Cue, format_vtt, stitch_windows
 from vlog_tpu_torch.backends.base import ProgressFn
+from vlog_tpu_torch.parallel.mesh import visible_cuda_devices
 
 
 class TranscriptionUnavailable(RuntimeError):
@@ -103,9 +104,9 @@ def transcribe_audio(
     device = assets.model.device
     if devices is None:
         devices = [device]
-        if device.type == "cuda" and torch.cuda.device_count() > 1:
-            devices = [torch.device("cuda", i)
-                       for i in range(torch.cuda.device_count())]
+        cards = visible_cuda_devices() if device.type == "cuda" else []
+        if len(cards) > 1:
+            devices = cards
     width = len(devices)
     batch_windows += (-batch_windows) % width
 
