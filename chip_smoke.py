@@ -29,10 +29,11 @@ Phases (any failure exits non-zero; none is caught):
    it; the card's clocks, temperature and power before and after;
 4. the integer stages (intra, P, deblock) on CPU and on CUDA from the
    same uint8 frames: levels, MVs and reconstructions must be identical;
-5. the slice: the first 6 frames of a seeded synthetic 1920x1080 Y4M
+5. the slice: the first 4 frames of a seeded synthetic 1920x1080 Y4M
    through ``TorchBackend(device="cuda").plan/run`` with the defaults
    (default ladder, thumbnail, resume, the executor at depth 2: one
-   24-frame chain cut to 6 frames, one dispatch); ``stage_s`` must hold
+   24-frame chain cut to 4 frames, one dispatch; 6 until the library
+   phase was added); ``stage_s`` must hold
    the reference's stage keys and the executor's gauges
    (``max_in_flight`` >= 1); the CMAF tree must parse with the port's
    own readers, the kernel's launch counter must rise by 3 scaled rungs
@@ -45,6 +46,21 @@ Phases (any failure exits non-zero; none is caught):
    coefficients' bound;
 6. intra: the same source, ``gop_mode="intra"``, 8 frames (one
    dispatch), default ladder: 9 launches, the tree parses, PSNR floor;
+6a. library: the surface the JAX package offers beside its backend:
+   ``H264Encoder(1920, 1080, device="cuda").encode`` on the first 2
+   frames of the 24-frame source (CAVLC, every frame an IDR), the
+   Annex-B decoded on the card by the port's decoder to the encoder's
+   reconstruction bit for bit (its PSNR-Y the reported ``psnr_y``); the
+   360p rung of those frames encoded with CABAC at IDR period 2 on the
+   card and on the CPU: identical bytes; ``ops.ladder_resize_yuv420`` on
+   the 24 frames to the default ladder (3 launches per scaled rung, none
+   for the identity rung, every plane held to the plain version);
+   ``parallel.single_chip_ladder`` over the default ladder, one 1-frame
+   dispatch (9 launches, each rung's PSNR-Y above the floor); and the GPU
+   image's warm-up step (the ``RUN python - <<'PY'`` heredoc of
+   ``deploy/gpu/Dockerfile.worker-gpu``, as written, in a subprocess
+   beside the phase) building the native coders and the kernel into a
+   fresh build directory;
 7. pipeline: the first 3 samples of the slice's 1080p rung (1 IDR + 2
    P, CABAC, deblocked, its rate control's QPs; cut from 4 for time),
    taken from its CMAF
@@ -195,7 +211,7 @@ Phases (any failure exits non-zero; none is caught):
    facade needs it); on the port's ``FakePg`` over a ``postgresql://``
    URL where it does, else on a sqlite file, the port's public app on
    loopback and ``WorkerDaemon(device="cuda")`` polling every 30 s in
-   this process: one 360p transcode of the 6-frame 1080p source (one
+   this process: one 360p transcode of the 4-frame 1080p source (one
    dispatch, 6 launches) claimed within 5 s of its enqueue (the wakeup
    bus: ``PgNotifyBus`` on Postgres), ``finalize_ready`` prewarming the
    app's delivery plane (the init and the segment); then over HTTP that
@@ -213,13 +229,13 @@ Phases (any failure exits non-zero; none is caught):
    app (``build_admin_app(..., device="cuda")``, audit log on) and
    public app on loopback over one sqlite file and
    ``WorkerDaemon(device="cuda")`` on one slot, the ladder cut to 360p as
-   in the serve phase; the 6-frame 1080p Y4M uploaded through the port's
+   in the serve phase; the 4-frame 1080p Y4M uploaded through the port's
    CLI (``cli.main(["upload", path, "--wait"])``, ``VLOG_ADMIN_URL`` the
    loopback admin) while an SSE client reads ``/api/events/progress``
    (at least one event of the job): ready, 6 launches, the tree
    verifies, the public app serves ``master.m3u8`` and a segment equal
    to the files, the audit log holds the upload; ``POST
-   .../thumbnail/from-time`` at frame 3 on the card: exactly 3 launches,
+   .../thumbnail/from-time`` at frame 2 on the card: exactly 3 launches,
    the grabbed planes held to the plain version, ``thumbnail.jpg`` the
    packed blocks of those planes at 1280x720; an HEVC re-encode through
    ``POST .../reencode`` (6 launches, hvc1, the tree verifies); the
@@ -248,7 +264,7 @@ Phases (any failure exits non-zero; none is caught):
 11a. grid (after asr, on its checkpoint): the (data x rung) grid
    on one card as four logical devices (``[cuda:0] * 4``; placement
    across distinct cards is not shown on a one-card machine): the
-   slice's default plan on its 6-frame source under a one-slot
+   slice's default plan on its 4-frame source under a one-slot
    ``MeshScheduler`` lease at ``VLOG_TPU_MESH=data:1,rung:4`` (one rung
    per column, 1x4): the tree byte-identical to the slice phase's, 12
    launches; ``process_video(codec="h265")`` on the 24-frame source at
@@ -281,6 +297,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -312,7 +329,8 @@ THUMB_MAX_BLOCK_SHARE = 1e-3
 
 SRC_H, SRC_W = 1080, 1920
 FRAMES = 24             # one full 24-frame I+P chain: one dispatch
-SLICE_FRAMES = 6        # the slice: one I+P chain cut to 6 frames
+SLICE_FRAMES = 4        # the slice: one I+P chain cut to 4 frames (6 until
+                        # the library phase was added)
 INTRA_FRAMES = 8        # one intra dispatch (frame_batch 8)
 MP4_FRAMES = 3          # samples of the I+P MP4 (1 IDR + 2 P: a cut chain)
 SEEK_FRAME = 1          # read mid-GOP on a fresh source
@@ -328,11 +346,13 @@ CLOCKS_QUERY = ("--query-gpu=clocks.sm,clocks.mem,clocks.max.sm,"
 RUNG_SHAPES = ((720, 1280), (480, 854), (360, 640))
 # Frames per kernel call on the driven paths: a 24-frame chain (hevc,
 # the scheduler's HEVC job, the daemon's and the remote phase's
-# re-encodes), an intra dispatch of 8 frames, a 6-frame chain (the
-# slice's cut chain, resume, ts, runtime, the daemon's and the remote
-# phase's 6-frame dispatches), the MP4's cut 4-frame chain (pipeline,
-# the daemon's and the remote phase's transcodes), the thumbnail's one
-# frame (the 720p rung's shapes). The kernel phase holds the kernel to
+# re-encodes; the library phase's ladder resize), an intra dispatch of 8
+# frames, a 6-frame chain (resume, ts, runtime, the daemon's and the
+# remote phase's 6-frame dispatches), the slice's cut 4-frame chain (the
+# slice, the grid phase's 1x4 run, the serve and admin uploads), the
+# MP4's cut 3-frame chain (pipeline, the daemon's and the remote phase's
+# transcodes), the thumbnail's one frame (the 720p rung's shapes; the
+# library phase's single_chip_ladder dispatch). The kernel phase holds the kernel to
 # its plain version at each; every backend phase checks that its plan
 # calls with one.
 COMPARE_N = tuple(dict.fromkeys((FRAMES, SLICE_FRAMES, INTRA_FRAMES,
@@ -1066,6 +1086,192 @@ def phase_intra(src: Path) -> int:
         f"{wall:.2f}s wall; stage_s {json.dumps(res.stage_s)}; "
         f"kernel launches {launches}")
     _check_rungs(res, out, INTRA_FRAMES)
+    return launches
+
+
+LIB_ENC_FRAMES = 2           # the standalone encoder's frames, each size
+LIB_SMALL_RUNG = "360p"      # the CABAC run's rung (its frames resized here)
+LIB_SMALL_IDR_PERIOD = 2
+DOCKERFILE = ROOT / "deploy" / "gpu" / "Dockerfile.worker-gpu"
+WARM_UP_TIMEOUT_S = 300.0
+
+
+def _warm_up_step() -> str:
+    """The body of the GPU image's ``RUN python - <<'PY'`` warm-up."""
+    m = re.search(r"^RUN python - <<'PY'\n(.*?)^PY$",
+                  DOCKERFILE.read_text(), re.S | re.M)
+    if m is None:
+        fail(f"library: no warm-up heredoc in {DOCKERFILE}")
+    return m.group(1)
+
+
+def phase_library(src: Path, work: Path) -> int:
+    """The library surface the JAX package offers beside its backend, on
+    the card: the standalone ``H264Encoder.encode`` (1080p CAVLC, decoded
+    on the card to its own reconstruction; 360p CABAC at IDR period 2,
+    the card's bytes equal to the CPU's), ``ladder_resize_yuv420`` on the
+    24-frame source (3 launches per scaled rung, each plane held to the
+    plain version), one ``single_chip_ladder`` dispatch of one frame, and
+    the GPU image's warm-up step (deploy/gpu/Dockerfile.worker-gpu) run
+    as written against a fresh build directory."""
+    from vlog_tpu_torch import config
+    from vlog_tpu_torch.backends.base import plan_rung_geometry
+    from vlog_tpu_torch.codecs.h264 import api as h264_api
+    from vlog_tpu_torch.codecs.h264.decoder import decode_annexb
+    from vlog_tpu_torch.media.y4m import Y4mReader
+    from vlog_tpu_torch.ops import fused_resize, ladder_resize_yuv420
+    from vlog_tpu_torch.ops.resize import apply_resize_matrices, resample_matrix
+    from vlog_tpu_torch.parallel import single_chip_ladder
+
+    report: dict = {}
+    # the warm-up step builds beside the phase, in a fresh build directory
+    build = work / "deploy_build"
+    warm = subprocess.Popen(
+        [sys.executable, "-c", _warm_up_step()], cwd=ROOT,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        env={**os.environ, "PYTHONPATH": str(ROOT),
+             "VLOG_COMPILE_CACHE_DIR": str(build)})
+    t_warm = time.perf_counter()
+
+    with Y4mReader(src) as reader:
+        planes = [np.stack(p) for p in zip(*reader.iter_frames())]
+    frames = planes[0].shape[0]
+    dev = torch.device("cuda")
+    launches = 0
+
+    # -- the resize API: every rung of the default ladder ------------------
+    rungs = [plan_rung_geometry(SRC_W, SRC_H, r)
+             for r in config.ladder_for_source(SRC_H)]
+    hw = tuple((r.height, r.width) for r in rungs)
+    y, u, v = (torch.from_numpy(p).to(dev) for p in planes)
+    scaled = sum(1 for s in hw if s != (SRC_H, SRC_W))
+    fused_resize.launches = 0
+    t0 = time.perf_counter()
+    out = ladder_resize_yuv420(y, u, v, hw)
+    torch.cuda.synchronize()
+    resize_s = time.perf_counter() - t0
+    launches += fused_resize.launches
+    if fused_resize.launches != 3 * scaled * fused_resize.LAUNCHES_PER_CALL:
+        fail(f"library: ladder_resize_yuv420 launched {fused_resize.launches}"
+             f", want {3 * scaled} ({scaled} scaled rungs x 3 planes)")
+    if any(a is not b for a, b in zip(out[(SRC_H, SRC_W)], (y, u, v))):
+        fail("library: the identity rung did not pass its planes through")
+    held = {}
+    for (h, w) in hw[1:]:
+        for name, got, plane, (dh, dw) in zip(
+                "YUV", out[(h, w)], (y, u, v),
+                ((h, w), (h // 2, w // 2), (h // 2, w // 2))):
+            a_h = torch.from_numpy(resample_matrix(plane.shape[-2], dh)).to(dev)
+            a_w = torch.from_numpy(resample_matrix(plane.shape[-1], dw)).to(dev)
+            held[f"{h}x{w} {name}"] = list(_held_to_plain(
+                got, apply_resize_matrices(plane, a_h, a_w),
+                f"library: ladder_resize_yuv420 {h}x{w} {name}"))
+    report["ladder_resize"] = {"frames": frames, "rungs": [list(s) for s in hw],
+                               "launches": launches, "s": round(resize_s, 3),
+                               "held": held}
+
+    # -- single_chip_ladder: one 1-frame dispatch --------------------------
+    spec = tuple((r.name, r.height, r.width, r.qp) for r in rungs)
+    fn, mats = single_chip_ladder(spec, SRC_H, SRC_W, device="cuda")
+    fused_resize.launches = 0
+    t0 = time.perf_counter()
+    levels = fn(y[:1], u[:1], v[:1], mats)
+    torch.cuda.synchronize()
+    ladder_s = time.perf_counter() - t0
+    launches += fused_resize.launches
+    if fused_resize.launches != 3 * scaled * fused_resize.LAUNCHES_PER_CALL:
+        fail(f"library: single_chip_ladder launched {fused_resize.launches}, "
+             f"want {3 * scaled}")
+    psnrs = {}
+    for (name, h, w, _), s in zip(spec, hw):
+        rec = levels[name]["recon_y"][0, :h, :w].to(torch.float64)
+        mse = float(((rec - out[s][0][0].to(torch.float64)) ** 2).mean())
+        psnrs[name] = round(10 * math.log10(255 ** 2 / max(mse, 1e-12)), 3)
+        if not psnrs[name] > PSNR_FLOOR_DB:
+            fail(f"library: single_chip_ladder {name} PSNR-Y {psnrs[name]}")
+    report["single_chip_ladder"] = {"launches": fused_resize.launches,
+                                    "s": round(ladder_s, 3), "psnr_y": psnrs}
+
+    # -- H264Encoder.encode at 1080p: decoded on the card ------------------
+    recons = []
+    real_gop = h264_api.encode_gop
+
+    def recording_gop(*a, **k):
+        res = real_gop(*a, **k)
+        recons.append(tuple(res[f"recon_{c}"] for c in "yuv"))
+        return res
+
+    h264_api.encode_gop = recording_gop
+    try:
+        enc = h264_api.H264Encoder(width=SRC_W, height=SRC_H, device="cuda")
+        t0 = time.perf_counter()
+        coded = enc.encode(*(p[:LIB_ENC_FRAMES] for p in planes))
+        enc_s = time.perf_counter() - t0
+    finally:
+        h264_api.encode_gop = real_gop
+    t0 = time.perf_counter()
+    decoded, sps = decode_annexb(b"".join(f.annexb for f in coded),
+                                 device="cuda")
+    dec_s = time.perf_counter() - t0
+    if (sps.height, sps.width) != (SRC_H, SRC_W) \
+            or len(decoded) != LIB_ENC_FRAMES or len(recons) != 1:
+        fail(f"library: decoded {len(decoded)} frames at {sps.height}x"
+             f"{sps.width}, {len(recons)} encode_gop calls")
+    for i, (d, f) in enumerate(zip(decoded, coded)):
+        for c, got, rec in zip("yuv", (d.y, d.u, d.v), recons[0]):
+            want = rec[i, :got.shape[0], :got.shape[1]].cpu().numpy()
+            if not np.array_equal(got, want):
+                fail(f"library: decoded frame {i} {c} differs from the "
+                     "encoder's reconstruction")
+        mse = np.mean((d.y.astype(np.float64) - planes[0][i]) ** 2)
+        psnr = 10 * np.log10(255 ** 2 / mse)
+        if not f.is_idr or abs(psnr - f.psnr_y) > 1e-9:
+            fail(f"library: frame {i} PSNR-Y {psnr} decoded, {f.psnr_y} "
+                 f"reported, idr {f.is_idr}")
+    report["encode_1080p"] = {
+        "frames": LIB_ENC_FRAMES, "entropy": enc.entropy,
+        "bytes": sum(len(f.avcc) for f in coded),
+        "psnr_y": [round(f.psnr_y, 3) for f in coded],
+        "encode_s": round(enc_s, 3), "decode_s": round(dec_s, 3)}
+
+    # -- H264Encoder.encode at 360p, CABAC: the card's bytes == the CPU's --
+    small = hw[[r.name for r in rungs].index(LIB_SMALL_RUNG)]
+    sy, su, sv = (p[:LIB_ENC_FRAMES].cpu().numpy() for p in out[small])
+    runs = {}
+    for d in ("cuda", "cpu"):
+        enc = h264_api.H264Encoder(width=small[1], height=small[0],
+                                   entropy="cabac",
+                                   idr_period=LIB_SMALL_IDR_PERIOD, device=d)
+        t0 = time.perf_counter()
+        runs[d] = (enc.encode(sy, su, sv), time.perf_counter() - t0)
+    card, cpu = runs["cuda"][0], runs["cpu"][0]
+    if [(f.avcc, f.annexb, f.is_idr) for f in card] != \
+            [(f.avcc, f.annexb, f.is_idr) for f in cpu] \
+            or [f.is_idr for f in card] != [True, False]:
+        fail("library: the 360p CABAC stream differs between the card and "
+             "the CPU")
+    report["encode_360p_cabac"] = {
+        "frames": LIB_ENC_FRAMES, "idr_period": LIB_SMALL_IDR_PERIOD,
+        "bytes": sum(len(f.avcc) for f in card), "equal_to_cpu": True,
+        "card_s": round(runs["cuda"][1], 3), "cpu_s": round(runs["cpu"][1], 3)}
+
+    # -- the deploy image's warm-up step -----------------------------------
+    try:
+        w_out, w_err = warm.communicate(timeout=WARM_UP_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        warm.kill()
+        warm.communicate()
+        fail("library: the image's warm-up step did not finish")
+    built = sorted(p.name for p in build.glob("*.so"))
+    if warm.returncode != 0 or not {"libvt_native.so",
+                                    "libvt_fused_resize.so"} <= set(built):
+        fail(f"library: the warm-up step exited {warm.returncode}, built "
+             f"{built}: {w_err[-2000:]}")
+    report["deploy_warm_up"] = {"s": round(time.perf_counter() - t_warm, 3),
+                                "built": built,
+                                "stdout": w_out.strip().splitlines()[-1:]}
+    log("library: " + json.dumps(report))
+    log(f"library: kernel launches {launches}")
     return launches
 
 
@@ -3621,7 +3827,7 @@ def phase_serve(work: Path, sources: dict) -> int:
     ``postgresql://`` URL; else (printed) a sqlite file. On that
     database the port's public app on loopback and ``WorkerDaemon
     (device="cuda")`` polling every SERVE_POLL_S: one 360p transcode of
-    the 6-frame 1080p source (one dispatch, SERVE_LAUNCHES launches)
+    the 4-frame 1080p source (one dispatch, SERVE_LAUNCHES launches)
     claimed within SERVE_CLAIM_MAX_S of its enqueue (the wakeup bus,
     ``PgNotifyBus`` on Postgres), its ``finalize_ready`` prewarming the
     app's plane. Then over HTTP, that tree and the remote phase's 1080p
@@ -3926,7 +4132,7 @@ ADMIN_SSE_TIMEOUT_S = 120.0
 ADMIN_UPLOAD_LAUNCHES = 6     # one 360p dispatch: 3 planes + 3 thumbnail
 ADMIN_THUMB_LAUNCHES = 3      # the grabbed frame's Y, U and V
 ADMIN_HEVC_LAUNCHES = 6       # the HEVC re-encode: the same at 360p
-ADMIN_THUMB_FRAME = 3         # the grab's frame: mid-source of 6
+ADMIN_THUMB_FRAME = 2         # the grab's frame: mid-source of 4
 
 
 def _av1_probe() -> tuple[bool, str]:
@@ -3959,12 +4165,12 @@ def phase_admin(work: Path, sources: dict) -> int:
     public app on loopback over one sqlite file, and
     ``WorkerDaemon(device="cuda")`` on one slot (transcodes and
     re-encodes), the ladder cut to the 360p rung as in the serve phase.
-    The 6-frame 1080p Y4M goes up through the port's CLI
+    The 4-frame 1080p Y4M goes up through the port's CLI
     (``vlog_tpu_torch.cli.main.main(["upload", path, "--wait"])`` with
     ``VLOG_ADMIN_URL`` the loopback admin) while an SSE client reads
     ``/api/events/progress``: the job ends ready, the public app serves
     ``master.m3u8`` and a segment equal to the files, the audit log holds
-    the upload. ``POST .../thumbnail/from-time`` at frame 3: exactly 3
+    the upload. ``POST .../thumbnail/from-time`` at frame 2: exactly 3
     kernel launches, the grabbed planes held to the plain version, the
     JPEG the packed blocks of those planes at 1280x720. An HEVC re-encode
     (``codec="h265"``) through the admin API: ready, hvc1, the tree
@@ -4579,6 +4785,8 @@ def main() -> int:
                      TS_FRAMES), 11)
     launches["slice"] = timed("slice", phase_slice, sources[SLICE_FRAMES])
     launches["intra"] = timed("intra", phase_intra, sources[INTRA_FRAMES])
+    launches["library"] = timed("library", phase_library, sources[FRAMES],
+                                work)
     launches["pipeline"], ip_path, seq = timed("pipeline", phase_pipeline,
                                                work)
     launches["pipeline_ts"] = timed("pipeline_ts", phase_pipeline_ts, ip_path)

@@ -33,12 +33,19 @@ from vlog_tpu_torch.asr.engine import AsrEngine, reset_engine  # noqa: E402
 @pytest.fixture(autouse=True)
 def _clean_engines():
     from vlog_tpu.asr import engine as jengine
+    from vlog_tpu.asr.decode import kv_pool as jax_kv_pool
 
+    # The JAX package's KV page pool is process-wide and keyed by shape
+    # only: a page an earlier test's run left on other virtual devices
+    # (a second scheduler slot's, devices 4-7) would be leased to this
+    # file's JAX lease over devices 0-3 and fail the jitted call.
+    jax_kv_pool.reset()
     reset_engine()
     jengine.reset_engine()
     yield
     reset_engine()
     jengine.reset_engine()
+    jax_kv_pool.reset()
 
 
 @pytest.fixture(scope="module")

@@ -6,7 +6,8 @@ CPU, the sprite worker, Whisper, the AAC encoder and ``process_video``
 on the card, and the device runtime: the executor's event/stream copies
 against ``.cpu()``, a pull that does not wait for a later batch's
 kernels, and the scheduler's CUDA probe; the worker daemon and the
-remote worker (over the port's Worker API) on the card.
+remote worker (over the port's Worker API) on the card; the one-call
+resize API (``ops.ladder_resize_yuv420``) through the kernel.
 
 Marked ``cuda``; each test skips (in its fixture) without a CUDA
 device. On a machine with a card and without JAX, run them alone:
@@ -914,3 +915,41 @@ def test_av1_rung_resize_on_the_card(cuda, tmp_path, monkeypatch):
     assert sum(checked) == 12 and fused_resize.launches - before >= 3
     assert all(r.codec_string.startswith("av01.") and r.segment_count == 1
                for r in res.rungs)
+
+
+def test_resize_api_on_the_card(cuda):
+    """The one-call resize API on CUDA planes: every scaled rung's uint8
+    planes go through the kernel (3 launches per rung, none for the
+    identity rung), each held to the plain version on the CPU; the
+    matrices are built once per key, so a second call derives no new
+    band form; a float32 result skips the kernel and equals the CPU's
+    products within 1e-4."""
+    from vlog_tpu_torch.ops import ladder_resize_yuv420, resize_plane
+
+    gen = torch.Generator(device=cuda).manual_seed(99)
+    y, u, v = (torch.randint(0, 256, (2,) + hw, device=cuda, generator=gen,
+                             dtype=torch.uint8)
+               for hw in ((1080, 1920), (540, 960), (540, 960)))
+    rungs = ((1080, 1920), (720, 1280), (480, 854), (360, 640))
+    before = fused_resize.launches
+    got = ladder_resize_yuv420(y, u, v, rungs)
+    assert fused_resize.launches == before + 3 * (len(rungs) - 1)
+    assert all(g is p for g, p in zip(got[rungs[0]], (y, u, v)))
+    for (h, w) in rungs[1:]:
+        for plane, src, (dh, dw) in zip(got[(h, w)], (y, u, v),
+                                        ((h, w), (h // 2, w // 2),
+                                         (h // 2, w // 2))):
+            assert plane.device.type == "cuda" and plane.dtype == torch.uint8
+            a_h = torch.from_numpy(resample_matrix(src.shape[-2], dh))
+            a_w = torch.from_numpy(resample_matrix(src.shape[-1], dw))
+            max_abs, n_diff = _diff(plane.cpu(),
+                                    apply_resize_matrices(src.cpu(), a_h, a_w))
+            assert max_abs <= 1 and n_diff <= 1e-3 * plane.numel()
+    bands = len(fused_resize._BANDS)
+    ladder_resize_yuv420(y, u, v, rungs)
+    assert len(fused_resize._BANDS) == bands
+    before = fused_resize.launches
+    f32 = resize_plane(y, 360, 640, out_dtype=torch.float32)
+    assert fused_resize.launches == before and f32.dtype == torch.float32
+    want = resize_plane(y.cpu(), 360, 640, out_dtype=torch.float32)
+    assert float((f32.cpu() - want).abs().max()) <= 1e-4

@@ -12,7 +12,12 @@ and its UI) and the multi-device grid's (the mesh, the ladder grids and
 the dry run) and the admin plane's (the admin API, the catalog, the audit
 log, the sessions, chapters and codec strings, the console client) and
 the AV1 path's (the OBU parser, the delegated encode) and the tooling's
-(the analysis passes, the lock witness, the bench-trend gate).
+(the analysis passes, the lock witness, the bench-trend gate). Under the
+same block the subprocess loads every name the port's package
+``__init__`` files re-export (``parallel``'s resolve at first use) and
+the library functions that mirror the JAX package's
+(``H264Encoder.encode``, the resize API, the colour conversions,
+``single_chip_ladder``, the fMP4 and failpoint helpers).
 """
 
 from __future__ import annotations
@@ -63,6 +68,38 @@ HTTP_PLANE = ("vlog_tpu_torch.api.worker_api", "vlog_tpu_torch.api.auth",
               "vlog_tpu_torch.analysis.tracehop",
               "vlog_tpu_torch.utils.locktrace",
               "vlog_tpu_torch.obs.benchtrend")
+# names each package's __init__ re-exports, and the library functions
+# that mirror the JAX package's: loaded with jax and vlog_tpu blocked
+REEXPORTS = (
+    ("vlog_tpu_torch.ops", ("rgb_to_yuv420", "yuv420_to_rgb",
+                            "yuv420_to_yuv444", "yuv444_to_yuv420",
+                            "resize_plane", "resize_yuv420",
+                            "ladder_resize_yuv420", "transform")),
+    ("vlog_tpu_torch.parallel", (
+        "LaggedRateControl", "PipelineExecutor", "StagedBatch", "MeshShape",
+        "MeshSpec", "RungGrid", "balanced_rung_columns", "make_mesh",
+        "parse_mesh_spec", "resolve_mesh_shape", "rung_grid",
+        "shard_frames", "MeshScheduler", "SlotLease", "SlotTicket",
+        "current_lease", "get_scheduler", "grid_for_run",
+        "host_pool_for_run", "mesh_for_run", "ladder_local",
+        "ladder_matrices", "sharded_ladder_levels", "sharded_ladder_step",
+        "single_chip_ladder")),
+    ("vlog_tpu_torch.codecs.h264", ("NalUnit", "make_sps", "make_pps",
+                                    "annexb", "avcc_config")),
+    ("vlog_tpu_torch.backends", ("FrameSource", "Mp4H264FrameSource",
+                                 "UnsupportedSource", "Y4mFrameSource",
+                                 "open_source", "torch_backend")),
+    ("vlog_tpu_torch.asr", ("log_mel_spectrogram",)),
+    ("vlog_tpu_torch.utils", ("atomic_write_bytes", "atomic_write_text")),
+    ("vlog_tpu_torch.codecs.h264.api", ("H264Encoder",)),
+    ("vlog_tpu_torch.codecs.h264.encoder", ("encode_gop", "pad_to_mb",
+                                            "frame_levels")),
+    ("vlog_tpu_torch.codecs.h264.inter", ("p_frame_levels",)),
+    ("vlog_tpu_torch.codecs.h264.cavlc", ("zigzag",)),
+    ("vlog_tpu_torch.codecs.hevc.core", ("encode_batch_dsp",)),
+    ("vlog_tpu_torch.media.fmp4", ("avcc_config", "raw_sample_entry")),
+    ("vlog_tpu_torch.utils.failpoints", ("disarm", "arm_from_env")),
+)
 
 _BLOCKED_IMPORT_SCRIPT = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys
@@ -83,6 +120,12 @@ _BLOCKED_IMPORT_SCRIPT = textwrap.dedent("""
                                               "vlog_tpu_torch.")]
     for name in names:
         importlib.import_module(name)
+    for pkg, attrs in {reexports!r}:
+        mod = importlib.import_module(pkg)
+        missing = [a for a in attrs if getattr(mod, a, None) is None]
+        assert not missing, (pkg, missing)
+    assert callable(sys.modules["vlog_tpu_torch.codecs.h264.api"]
+                    .H264Encoder.encode)
     import chip_smoke
     leaked = [m for m in sys.modules
               if any(m == b or m.startswith(b + ".") for b in BLOCKED)]
@@ -104,7 +147,8 @@ def _roots(tree: ast.AST) -> set[str]:
 
 def test_port_imports_with_jax_and_vlog_tpu_blocked():
     script = _BLOCKED_IMPORT_SCRIPT.format(blocked=BLOCKED, root=str(ROOT),
-                                           http_plane=HTTP_PLANE)
+                                           http_plane=HTTP_PLANE,
+                                           reexports=REEXPORTS)
     proc = subprocess.run([sys.executable, "-c", script], cwd=str(ROOT),
                           capture_output=True, text=True, timeout=120)
     assert proc.returncode == 0, proc.stderr[-3000:]

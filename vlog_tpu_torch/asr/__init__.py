@@ -6,3 +6,5 @@ rules, checkpoint loading without ``transformers``, and the
 continuous-batching engine (on the mesh scheduler's leases, a batch's
 rows split over a wide lease's devices).
 """
+
+from vlog_tpu_torch.asr.mel import log_mel_spectrogram  # noqa: F401

@@ -17,4 +17,11 @@ from vlog_tpu_torch.backends.base import (  # noqa: F401
     register_backend,
     select_backend,
 )
+from vlog_tpu_torch.backends.source import (  # noqa: F401
+    FrameSource,
+    Mp4H264FrameSource,
+    UnsupportedSource,
+    Y4mFrameSource,
+    open_source,
+)
 from vlog_tpu_torch.backends import torch_backend  # noqa: F401  (registers "torch")

@@ -25,6 +25,11 @@ _ZZ_R = np.array([r for r, _ in ZIGZAG_4x4])
 _ZZ_C = np.array([c for _, c in ZIGZAG_4x4])
 
 
+def zigzag(block: np.ndarray) -> np.ndarray:
+    """(4,4) -> (16,) in zigzag scan order."""
+    return block[_ZZ_R, _ZZ_C]
+
+
 def _nc(avail_a: bool, na: int, avail_b: bool, nb: int) -> int:
     """Neighbour context (spec 9.2.1): nA left, nB above."""
     if avail_a and avail_b:

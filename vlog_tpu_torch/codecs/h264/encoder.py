@@ -203,3 +203,42 @@ def encode_frame(y, u, v, *, qp):
         "recon_u": torch.cat(urec, 1).to(torch.uint8),
         "recon_v": torch.cat(vrec, 1).to(torch.uint8),
     }
+
+
+def encode_gop(y, u, v, *, qp):
+    """``encode_frame`` over a GOP batch on the planes' device: y (N, H,
+    W), u/v (N, H/2, W/2) integer tensors; ``qp`` an int or an (N,)
+    vector, broadcast to one int32 QP per frame."""
+    qps = torch.broadcast_to(
+        torch.as_tensor(qp, dtype=torch.int32, device=y.device),
+        (y.shape[0],)).contiguous()
+    return encode_frame(y, u, v, qp=qps)
+
+
+def pad_to_mb(plane: np.ndarray, mb: int = 16) -> np.ndarray:
+    """Edge-replicate pad H/W up to a multiple of ``mb`` (host-side)."""
+    h, w = plane.shape[-2:]
+    ph = (-h) % mb
+    pw = (-w) % mb
+    if ph == 0 and pw == 0:
+        return plane
+    pad = [(0, 0)] * (plane.ndim - 2) + [(0, ph), (0, pw)]
+    return np.pad(plane, pad, mode="edge")
+
+
+def to_host(x) -> np.ndarray:
+    """A tensor (on any device) or an array as a host numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    return np.asarray(x)
+
+
+def frame_levels(out: dict, qp: int) -> FrameLevels:
+    """One frame's ``encode_frame`` output -> host FrameLevels (numpy)."""
+    return FrameLevels(
+        luma_dc=to_host(out["luma_dc"]),
+        luma_ac=to_host(out["luma_ac"]),
+        chroma_dc=to_host(out["chroma_dc"]),
+        chroma_ac=to_host(out["chroma_ac"]),
+        qp=qp,
+    )

@@ -24,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from vlog_tpu_torch.codecs.h264.encoder import chroma_qp
+from vlog_tpu_torch.codecs.h264.encoder import chroma_qp, to_host
 from vlog_tpu_torch.ops.transform import (
     core_transform,
     dequantize,
@@ -307,3 +307,10 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, *, qp, search: int = 8):
         "recon_u": recon_u.to(torch.uint8),
         "recon_v": recon_v.to(torch.uint8),
     }
+
+
+def p_frame_levels(out: dict) -> dict:
+    """One frame's ``encode_p_frame`` output -> host numpy dict for the
+    entropy coder."""
+    return {k: to_host(out[k]).astype(np.int32)
+            for k in ("luma", "chroma_dc", "chroma_ac", "mv")}

@@ -303,7 +303,7 @@ class HevcEncoder:
         """Encode a batch of frames, every one an IDR: y (B, H, W), u/v
         (B, H/2, W/2) uint8. One DSP call on the device; entropy per
         frame."""
-        from vlog_tpu_torch.codecs.hevc.core import encode_frame_dsp
+        from vlog_tpu_torch.codecs.hevc.core import encode_batch_dsp
 
         y = self._pad(np.asarray(y, np.uint8), CTB)
         u = self._pad(np.asarray(u, np.uint8), CTB // 2)
@@ -318,7 +318,7 @@ class HevcEncoder:
                 qps = np.concatenate(
                     [qps, np.full((b - qps.shape[0],), qps[-1] if qps.size
                                   else self.qp, np.int32)])
-        (ly, lu, lv), (ry, _, _) = encode_frame_dsp(
+        (ly, lu, lv), (ry, _, _) = encode_batch_dsp(
             self._tensor(y), self._tensor(u), self._tensor(v),
             torch.as_tensor(qps), deblock=bool(self.deblock))
         ly, lu, lv, ry = (a.cpu().numpy() for a in (ly, lu, lv, ry))

@@ -198,11 +198,12 @@ def _encode_plane(plane: torch.Tensor, qp: torch.Tensor, n: int):
 
 def encode_frame_dsp(y, u, v, qp, *, deblock: bool = False):
     """Intra pass for a batch of padded frames (the reference's
-    ``encode_frame_dsp``; its ``encode_batch_dsp`` is this call on a
-    batch): y (B, H, W), u/v (B, H/2, W/2) uint8, qp (B,) int32.
-    Returns per-CTB levels and the bit-exact reconstruction of all
-    three planes (spec-8.7.2 deblocked when ``deblock``: intra pictures
-    filter luma and chroma, every TU edge at bS 2)."""
+    ``encode_frame_dsp``, batched; ``encode_batch_dsp`` is the
+    reference's name for the batch): y (B, H, W), u/v (B, H/2, W/2)
+    uint8, qp (B,) int32. Returns per-CTB levels and the bit-exact
+    reconstruction of all three planes (spec-8.7.2 deblocked when
+    ``deblock``: intra pictures filter luma and chroma, every TU edge at
+    bS 2)."""
     qp = torch.as_tensor(qp, dtype=I32, device=y.device).reshape(-1)
     qpc = chroma_qp_traced(qp)
     ly, ry = _encode_plane(y, qp, 32)
@@ -215,6 +216,12 @@ def encode_frame_dsp(y, u, v, qp, *, deblock: bool = False):
                                   bs_h=bs_h, chroma=True)
         ry, ru, rv = (p.to(torch.uint8) for p in rec)
     return (ly, lu, lv), (ry, ru, rv)
+
+
+def encode_batch_dsp(y, u, v, qps, deblock: bool = False):
+    """The reference's batched intra pass: ``encode_frame_dsp`` over a
+    (B, ...) batch with one QP per frame."""
+    return encode_frame_dsp(y, u, v, qps, deblock=deblock)
 
 
 # ---------------------------------------------------------------- inter

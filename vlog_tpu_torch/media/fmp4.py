@@ -1,7 +1,7 @@
 """ISO-BMFF muxing: CMAF fMP4 (init segment + media segments) and
-progressive MP4 (the subset of ``vlog_tpu/media/fmp4.py`` the H.264,
-HEVC and AV1 ladder writers, the AAC renditions and the MP4 sources
-need).
+progressive MP4 (a copy of ``vlog_tpu/media/fmp4.py``'s functions: the
+sample entries of the H.264, HEVC, AV1 and AAC tracks, and the
+writers).
 
 One track per CMAF file, fixed timescale, movie fragments with one trun.
 """
@@ -32,6 +32,19 @@ class Sample:
     is_sync: bool = True
     cts_offset: int = 0
 
+
+def avcc_config(sps: bytes, pps: bytes) -> bytes:
+    """AVCDecoderConfigurationRecord (ISO 14496-15 5.3.3.1) from raw SPS/PPS."""
+    profile, compat, level = sps[1], sps[2], sps[3]
+    return (
+        u8(1)                       # configurationVersion
+        + u8(profile) + u8(compat) + u8(level)
+        + u8(0xFC | 3)              # lengthSizeMinusOne = 3 (4-byte lengths)
+        + u8(0xE0 | 1)              # numOfSequenceParameterSets = 1
+        + u16(len(sps)) + sps
+        + u8(1)                     # numOfPictureParameterSets
+        + u16(len(pps)) + pps
+    )
 
 
 def avc1_sample_entry(width: int, height: int, avcc: bytes) -> bytes:
@@ -101,6 +114,11 @@ def av1c_record(seq_profile: int, seq_level_idx: int, seq_tier: int,
     b2 |= (1 << 3) | (1 << 2)
     b3 = 0                                       # no initial delay
     return bytes([b0, b1, b2, b3])
+
+
+def raw_sample_entry(entry: bytes) -> bytes:
+    """Pass a demuxed stsd entry straight through (audio remux path)."""
+    return entry
 
 
 def _descriptor(tag: int, payload: bytes) -> bytes:

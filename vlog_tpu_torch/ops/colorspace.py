@@ -76,6 +76,21 @@ def _to_uint8(x: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(x), 0, 255).to(torch.uint8)
 
 
+def _up2(p: torch.Tensor) -> torch.Tensor:
+    """Nearest-neighbour doubling of the last two axes."""
+    return p.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
+
+
+def _box2(p: torch.Tensor) -> torch.Tensor:
+    """float32 2x2 box mean over the last two axes, summed as XLA's CPU
+    reduction sums."""
+    h, w = p.shape[-2], p.shape[-1]
+    p = p.to(torch.float32).reshape(*p.shape[:-2], h // 2, 2, w // 2, 2)
+    a, b = p[..., 0, :, 0], p[..., 0, :, 1]
+    c, d = p[..., 1, :, 0], p[..., 1, :, 1]
+    return ((a + b) + (c + d)) * 0.25
+
+
 def rgb_to_yuv420(rgb: torch.Tensor, *, standard: str = "bt709",
                   full_range: bool = False):
     """RGB float [0, 1] (..., H, W, 3) -> planar uint8 (Y, U, V) 4:2:0.
@@ -100,15 +115,7 @@ def rgb_to_yuv420(rgb: torch.Tensor, *, standard: str = "bt709",
         cq_scale = 224.0
     cbq = _fma(cb, cq_scale, 128.0)
     crq = _fma(cr, cq_scale, 128.0)
-
-    def box2(p: torch.Tensor) -> torch.Tensor:
-        h, w = p.shape[-2], p.shape[-1]
-        p = p.reshape(*p.shape[:-2], h // 2, 2, w // 2, 2)
-        a, b = p[..., 0, :, 0], p[..., 0, :, 1]
-        c, d = p[..., 1, :, 0], p[..., 1, :, 1]
-        return ((a + b) + (c + d)) * 0.25
-
-    return _to_uint8(yq), _to_uint8(box2(cbq)), _to_uint8(box2(crq))
+    return _to_uint8(yq), _to_uint8(_box2(cbq)), _to_uint8(_box2(crq))
 
 
 def yuv420_to_rgb(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor, *,
@@ -117,12 +124,8 @@ def yuv420_to_rgb(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor, *,
     """Planar uint8 YUV 4:2:0 -> RGB float [0, 1] (..., H, W, 3); chroma
     upsampled by nearest-neighbour doubling."""
     _, inv = _matrices(standard)
-
-    def up(p: torch.Tensor) -> torch.Tensor:
-        p = p.to(torch.float32)
-        return p.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
-
-    yf, uf, vf = y.to(torch.float32), up(u), up(v)
+    yf = y.to(torch.float32)
+    uf, vf = _up2(u.to(torch.float32)), _up2(v.to(torch.float32))
     if full_range:
         yl = yf * _recip(255.0)
         cscale = 255.0
@@ -134,3 +137,14 @@ def yuv420_to_rgb(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor, *,
     rgb = torch.stack([_fma(cr, m[2], _fma(cb, m[1], yl * float(m[0])))
                        for m in inv], dim=-1)
     return torch.clamp(rgb, 0.0, 1.0)
+
+
+def yuv420_to_yuv444(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
+    """Upsample chroma to luma resolution (nearest)."""
+    return y, _up2(u), _up2(v)
+
+
+def yuv444_to_yuv420(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor):
+    """Downsample chroma with a 2x2 box filter (float32 mean, rounded
+    half to even to uint8)."""
+    return y, _to_uint8(_box2(u)), _to_uint8(_box2(v))

@@ -1,4 +1,5 @@
-"""Separable ladder resampling: numpy matrices and the plain PyTorch product.
+"""Separable ladder resampling: numpy matrices, the plain PyTorch product,
+and the one-call resize API.
 
 ``resample_matrix`` and ``plan_ladder_matrices`` are copies of the JAX
 package's numpy builders (``vlog_tpu/ops/resize.py``), so both packages
@@ -7,6 +8,14 @@ fused kernel walks instead of the dense matrix. ``apply_resize_matrices`` is the
 plain PyTorch version of the fused resize kernel (ops/fused_resize.py):
 ``uint8(clip(round_half_even((A_h @ f32(x)) @ A_w.T), 0, 255))`` with
 both products in float32, in that order.
+
+``resize_plane``, ``resize_yuv420`` and ``ladder_resize_yuv420`` take the
+reference's signatures: the target size instead of matrices, which are
+built once per (source, target, filter, device) and kept. A uint8 plane
+resized to uint8 goes through ``fused_resize_plane``: the kernel on a
+CUDA tensor, its plain version on a CPU tensor. A float source or a
+float result is a function the kernel does not compute: those take the
+two float32 products (TF32 is off, see the package's ``__init__``).
 """
 
 from __future__ import annotations
@@ -117,13 +126,21 @@ def _plan_ladder_cached(src_h: int, src_w: int,
     return tuple(mats)
 
 
+def _products(plane: torch.Tensor, a_h: torch.Tensor,
+              a_w: torch.Tensor) -> torch.Tensor:
+    """(A_h @ f32(plane)) @ A_w.T in float32."""
+    x = torch.matmul(a_h, plane.to(torch.float32))
+    return torch.matmul(x, a_w.transpose(0, 1))
+
+
+def _to_uint8(x: torch.Tensor) -> torch.Tensor:
+    return torch.clamp(torch.round(x), 0, 255).to(torch.uint8)
+
+
 def apply_resize_matrices(plane: torch.Tensor, a_h: torch.Tensor,
                           a_w: torch.Tensor) -> torch.Tensor:
     """(..., H, W) uint8 x (h, H) x (w, W) -> (..., h, w) uint8."""
-    x = plane.to(torch.float32)
-    x = torch.matmul(a_h, x)
-    x = torch.matmul(x, a_w.transpose(0, 1))
-    return torch.clamp(torch.round(x), 0, 255).to(torch.uint8)
+    return _to_uint8(_products(plane, a_h, a_w))
 
 
 def resize_yuv420_with(y, u, v, rung_mats, plane_fn=apply_resize_matrices):
@@ -133,3 +150,54 @@ def resize_yuv420_with(y, u, v, rung_mats, plane_fn=apply_resize_matrices):
         return y, u, v
     (a_h, a_w), (c_h, c_w) = rung_mats
     return plane_fn(y, a_h, a_w), plane_fn(u, c_h, c_w), plane_fn(v, c_h, c_w)
+
+
+@functools.lru_cache(maxsize=256)
+def _device_matrix(src: int, dst: int, filter: str,
+                   device: str) -> torch.Tensor:
+    """``resample_matrix`` as a float32 tensor on ``device``, one tensor
+    per key: the kernel derives a matrix's band form once per tensor."""
+    return torch.tensor(resample_matrix(src, dst, filter), device=device)
+
+
+def resize_plane(plane: torch.Tensor, dst_h: int, dst_w: int, *,
+                 filter: str = "lanczos3", out_dtype=torch.uint8
+                 ) -> torch.Tensor:
+    """Resize a (..., H, W) plane to (..., dst_h, dst_w) on its device.
+
+    Rows then columns; the result is rounded half to even and clipped to
+    ``out_dtype`` uint8, or kept as float32 products cast to another
+    ``out_dtype`` (for chained ops)."""
+    from vlog_tpu_torch.ops.fused_resize import fused_resize_plane
+
+    dev = str(plane.device)
+    a_h = _device_matrix(plane.shape[-2], dst_h, filter, dev)
+    a_w = _device_matrix(plane.shape[-1], dst_w, filter, dev)
+    if out_dtype == torch.uint8 and plane.dtype == torch.uint8:
+        return fused_resize_plane(plane.contiguous(), a_h, a_w)
+    x = _products(plane, a_h, a_w)
+    return _to_uint8(x) if out_dtype == torch.uint8 else x.to(out_dtype)
+
+
+def resize_yuv420(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                  dst_h: int, dst_w: int, *, filter: str = "lanczos3"):
+    """Resize a planar 4:2:0 frame batch to uint8; dst_h/dst_w must be
+    even. An identity size resizes nothing: uint8 planes come back as
+    they are, float planes rounded and clipped to uint8."""
+    if dst_h % 2 or dst_w % 2:
+        raise ValueError("4:2:0 target dimensions must be even")
+    if (y.shape[-2], y.shape[-1]) == (dst_h, dst_w):
+        if y.dtype != torch.uint8:
+            return _to_uint8(y), _to_uint8(u), _to_uint8(v)
+        return y, u, v
+    return (resize_plane(y, dst_h, dst_w, filter=filter),
+            resize_plane(u, dst_h // 2, dst_w // 2, filter=filter),
+            resize_plane(v, dst_h // 2, dst_w // 2, filter=filter))
+
+
+def ladder_resize_yuv420(y: torch.Tensor, u: torch.Tensor, v: torch.Tensor,
+                         rungs, *, filter: str = "lanczos3") -> dict:
+    """One source -> every rung: {(h, w): (Y, U, V)} for each (height,
+    width) in ``rungs``."""
+    return {(h, w): resize_yuv420(y, u, v, h, w, filter=filter)
+            for (h, w) in rungs}

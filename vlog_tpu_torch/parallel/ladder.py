@@ -244,6 +244,24 @@ def ladder_local(y, u, v, mats: dict, rungs: tuple[RungSpec, ...],
             for name, _, _, qp in rungs}
 
 
+def single_chip_ladder(rungs: tuple[RungSpec, ...], src_h: int, src_w: int,
+                       device="cuda") -> tuple[Callable, dict]:
+    """The one-device ladder step and its matrices on ``device``.
+
+    Returns ``(fn, mats)``: ``fn(y, u, v, mats)`` is ``ladder_local`` on
+    the device (each scaled rung's planes through the fused kernel on
+    CUDA). The reference's ``pallas=`` switch has no counterpart: the
+    kernel is the only resize on a CUDA tensor (ROADMAP Queue C item 26).
+    """
+    dev = resolve_device(device)
+
+    def fn(y, u, v, mats):
+        y, u, v = (torch.as_tensor(p, device=dev) for p in (y, u, v))
+        return ladder_local(y, u, v, mats, rungs)
+
+    return fn, mats_from_numpy(ladder_matrices(rungs, src_h, src_w), dev)
+
+
 # --- the (data x rung) grid -------------------------------------------------
 
 class GridProgram:

@@ -181,6 +181,11 @@ def arm(site: str, *, count: int | None = None, prob: float | None = None,
         _active[site] = _Failpoint(site, count=count, prob=prob, skip=skip)
 
 
+def disarm(site: str) -> None:
+    with _lock:
+        _active.pop(site, None)
+
+
 def reset() -> None:
     """Disarm every site and reseed the probability stream."""
     with _lock:
@@ -230,6 +235,11 @@ def arm_from_spec(spec: str) -> list[str]:
     return armed
 
 
+def arm_from_env() -> list[str]:
+    spec = os.environ.get(ENV_VAR, "")
+    return arm_from_spec(spec) if spec else []
+
+
 def hit(site: str) -> None:
     """Record a hit at ``site``; raises FailpointError when triggered."""
     if not _active:          # fast path: nothing armed anywhere
@@ -262,6 +272,8 @@ def counters() -> dict[str, dict[str, int]]:
                 for s, fp in _active.items()}
 
 
+# Arming at import: export VLOG_FAILPOINTS and every process that
+# imports the job plane takes part in the chaos run.
 if os.environ.get(ENV_VAR):
     _rng.seed(int(os.environ.get(SEED_VAR, "0") or 0))
-    arm_from_spec(os.environ[ENV_VAR])
+    arm_from_env()
