@@ -953,3 +953,106 @@ def test_resize_api_on_the_card(cuda):
     assert fused_resize.launches == before and f32.dtype == torch.float32
     want = resize_plane(y.cpu(), 360, 640, out_dtype=torch.float32)
     assert float((f32.cpu() - want).abs().max()) <= 1e-4
+
+
+# --------------------------------------------------------------------------
+# Stage spans and device-clock records on the card
+# --------------------------------------------------------------------------
+
+def test_stage_spans_stay_off_the_device_timeline(cuda):
+    """Under a CPU+CUDA profiler session a ``stage()`` is a host event
+    and adds no range to the device's timeline (a trace reader counts
+    every device event as device time)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from vlog_tpu_torch.obs.trace import stage
+
+    x = torch.ones(1 << 20, device=cuda)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        with stage("outer.unit"):
+            for _ in range(4):
+                with stage("inner.step"):
+                    x.mul_(1.0001)
+        torch.cuda.synchronize()
+    events = list(prof.profiler.kineto_results.events())
+    dev = [e.name() for e in events
+           if e.device_type() == torch.autograd.DeviceType.CUDA]
+    host = [e.name() for e in events
+            if e.device_type() != torch.autograd.DeviceType.CUDA]
+    assert host.count("outer.unit") == 1 and host.count("inner.step") == 4
+    assert "outer.unit" not in dev and "inner.step" not in dev
+    assert len(dev) >= 4                           # the kernels themselves
+
+
+def test_device_clock_times_the_unit_with_its_gaps(cuda):
+    from vlog_tpu_torch.obs.trace import DeviceClock
+
+    x = torch.ones(1 << 22, device=cuda)
+    torch.cuda.synchronize()
+    clock = DeviceClock([cuda, "cuda"])
+    x.mul_(1.0001)
+    time.sleep(0.05)                 # the device idles inside the unit
+    x.mul_(1.0001)
+    clock.stop()
+    wall = clock.wall_s()
+    assert 0.05 <= wall < 1.0
+
+
+def test_hevc_dispatch_records_on_the_card(cuda, tmp_path):  # slowlane-ok: 96x128, 24 frames
+    from vlog_tpu_torch import config
+    from vlog_tpu_torch.backends.torch_backend import TorchBackend
+    from vlog_tpu_torch.media.probe import get_video_info
+    from vlog_tpu_torch.media.y4m import write_y4m
+
+    rng = np.random.default_rng(4)
+    frames = [tuple(rng.integers(0, 256, hw, dtype=np.uint8)
+                    for hw in ((96, 128), (48, 64), (48, 64)))
+              for _ in range(24)]
+    write_y4m(tmp_path / "src.y4m", frames, fps_num=6, fps_den=1)
+    rungs = (config.QualityRung("96p", 96, 150_000, 0, base_qp=30),
+             config.QualityRung("64p", 64, 75_000, 0, base_qp=31))
+    be = TorchBackend(device=cuda)
+    plan = be.plan(get_video_info(tmp_path / "src.y4m"), rungs,
+                   tmp_path / "out", codec="h265", segment_duration_s=1.0)
+    res = be.run(plan, None, resume=False)
+    recs = res.dispatches
+    assert [r["frames"] for r in recs] == [12, 12]
+    for r in recs:
+        assert r["t_enqueue0"] < r["t_enqueue1"] <= r["t_done"]
+        # the device's wall lies within the host's view of the dispatch
+        assert 0 < r["wall_s"] <= r["t_done"] - r["t_enqueue0"] + 1e-3
+    assert res.stage_s["dispatch_wall_s"] == pytest.approx(
+        sum(r["wall_s"] for r in recs), abs=2e-3)
+
+
+def test_engine_tick_wall_on_the_card(cuda, whisper_dir):  # slowlane-ok: tiny checkpoint, one tick, card only
+    from vlog_tpu_torch.asr import load
+    from vlog_tpu_torch.asr.engine import AsrEngine
+    from vlog_tpu_torch.obs.metrics import HAVE_PROMETHEUS, runtime
+
+    def device_seconds():
+        for fam in runtime().registry.collect():
+            for s in fam.samples:
+                if s.name == "vlog_device_seconds_total" and \
+                        s.labels == {"plane": "asr", "rung": "forward"}:
+                    return s.value
+        return 0.0
+
+    before = device_seconds()
+    engine = AsrEngine(load.load_whisper(whisper_dir, device="cuda"),
+                       batch_windows=4, tick_s=0.3)
+    try:
+        h = engine.begin_job("A", language="en", max_new=16, beam=5)
+        for i, audio in enumerate(_asr_windows(4)):
+            h.submit(i, 25.0 * i, audio)
+        assert {i for i, _, _ in h.results()} == {0, 1, 2, 3}
+        h.close()
+    finally:
+        engine.close()
+    (tick,) = engine.batch_log
+    assert 0 < tick["wall_s"] <= tick["t1"] - tick["t0"] + 1e-3
+    assert 1 <= tick["steps"] <= 16
+    if HAVE_PROMETHEUS:
+        assert device_seconds() == pytest.approx(before + tick["wall_s"])

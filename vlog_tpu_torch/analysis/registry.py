@@ -16,8 +16,10 @@ the real registries from source —
   hand-rendered ``# HELP``/``# TYPE`` families in the same file;
 - **span names**: literal first args of ``span()``/``event()`` calls
   and literal ``name=`` kwargs of ``obs_store.record()`` calls across
-  the package, plus the synthesized ``stage.*`` names derived from
-  ``STAGE_KEYS`` in obs/trace.py —
+  the package, the literal names of hot-path ``stage()`` spans
+  (``<layer>.<step>``, dotted deeper where a step has parts), plus the
+  synthesized ``stage.*`` names derived from ``STAGE_KEYS`` in
+  obs/trace.py —
 
 and checks both directions against the docs (README.md and
 docs/DESIGN.md): everything extracted must be documented, and every
@@ -204,6 +206,10 @@ def span_names(modules: list[Module]) -> set[str]:
             if seg in ("span", "event"):
                 name = _str_arg(node)
                 if name and re.fullmatch(r"[a-z]+\.[a-z_]+", name):
+                    names.add(name)
+            elif seg == "stage":
+                name = _str_arg(node)
+                if name and re.fullmatch(r"[a-z]+(\.[a-z_]+)+", name):
                     names.add(name)
             elif seg == "record":
                 name = _str_kwarg(node, "name")

@@ -18,6 +18,15 @@ scores ``finfo.min``).
 
 Row independence is the engine's contract: no operation here crosses
 batch rows, so row i's tokens do not depend on rows j != i.
+
+Stage spans (``obs/trace.py::stage``, recorded only under a profiler
+session on the calling thread): ``asr.encode``, ``asr.cross_kv``,
+``asr.prefill``; per beam step ``asr.step.rules`` (suppression, the
+timestamp rules, log-softmax), ``asr.step.select`` (top-k and the
+sequence gathers), ``asr.step.kv_gather``, ``asr.step.decoder``, and
+``asr.finish_check`` (the wait on every row having finished); then
+``asr.pull``. :func:`take_steps` gives the decoder steps the loops of
+this thread ran since it last asked (the engine's tick record).
 """
 
 from __future__ import annotations
@@ -37,6 +46,7 @@ from vlog_tpu_torch.asr.model import (
     decoder_step,
     encode,
 )
+from vlog_tpu_torch.obs.trace import stage
 
 TIME_PRECISION = 0.02       # seconds per timestamp token step
 MAX_INITIAL_TIMESTAMP_INDEX = 50   # first cue within 1.0 s
@@ -102,6 +112,22 @@ class KVCachePool:
 
 
 kv_pool = KVCachePool()
+
+# the most step-loop iterations a generation of this thread ran since the
+# last take_steps()
+_STEPS = threading.local()
+
+
+def _ran(steps: int) -> None:
+    _STEPS.n = max(getattr(_STEPS, "n", 0), steps)
+
+
+def take_steps() -> int:
+    """Step-loop iterations of the longest generation this thread ran
+    since the previous call (0 if none), and reset."""
+    n = getattr(_STEPS, "n", 0)
+    _STEPS.n = 0
+    return n
 
 
 @dataclass
@@ -194,13 +220,16 @@ def _generate(model: WhisperModel, mel: torch.Tensor, prompt: list[int],
               suppress_vec: torch.Tensor, begin_suppress_vec: torch.Tensor,
               cache: DecoderCache, *, sot: int, eot: int, ts_begin: int,
               no_speech: int, max_new: int, timestamps: bool):
-    enc = encode(model, mel)
-    ckv = cross_kv(model, enc)
+    with stage("asr.encode"):
+        enc = encode(model, mel)
+    with stage("asr.cross_kv"):
+        ckv = cross_kv(model, enc)
     b = mel.shape[0]
     plen = len(prompt)
     dev = mel.device
 
-    logits = _prefill(model, prompt, b, cache, ckv)
+    with stage("asr.prefill"):
+        logits = _prefill(model, prompt, b, cache, ckv)
     # no-speech probability from the first post-prompt distribution
     probs0 = torch.softmax(logits, dim=-1)
     no_speech_prob = (probs0[:, no_speech] if no_speech >= 0
@@ -212,6 +241,7 @@ def _generate(model: WhisperModel, mel: torch.Tensor, prompt: list[int],
     last_ts = torch.full((b,), ts_begin - 1, dtype=torch.int64, device=dev)
     finished = torch.zeros((b,), dtype=torch.bool, device=dev)
     toks = torch.full((b, max_new), eot, dtype=torch.int64, device=dev)
+    step = -1
     for step in range(max_new):
         lg = logits + suppress_vec
         if step == 0:
@@ -229,6 +259,7 @@ def _generate(model: WhisperModel, mel: torch.Tensor, prompt: list[int],
                 (step + 1) % FINISH_CHECK_STEPS == 0 and bool(finished.all())):
             break
         logits = decoder_step(model, tok, plen + step, cache, ckv)
+    _ran(step + 1)
     return toks, no_speech_prob, cache
 
 
@@ -244,20 +275,23 @@ def _generate_beam(model: WhisperModel, mel: torch.Tensor, prompt: list[int],
     rows of the winning parents. Finished beams persist with frozen
     scores (only EOT continues, at zero cost). Selection normalizes by
     generated length."""
-    enc = encode(model, mel)
-    ckv = cross_kv(model, enc)
+    with stage("asr.encode"):
+        enc = encode(model, mel)
     b = mel.shape[0]
     k = beam
     bk = b * k
     dev = mel.device
     neg = torch.finfo(torch.float32).min
 
-    # beams share the window's audio: tile cross-KV rows K-fold
-    ckv = [(ck.repeat_interleave(k, dim=0), cv.repeat_interleave(k, dim=0))
-           for ck, cv in ckv]
+    with stage("asr.cross_kv"):
+        ckv = cross_kv(model, enc)
+        # beams share the window's audio: tile cross-KV rows K-fold
+        ckv = [(ck.repeat_interleave(k, dim=0),
+                cv.repeat_interleave(k, dim=0)) for ck, cv in ckv]
     del enc
     plen = len(prompt)
-    logits = _prefill(model, prompt, bk, cache, ckv)
+    with stage("asr.prefill"):
+        logits = _prefill(model, prompt, bk, cache, ckv)
     probs0 = torch.softmax(logits.reshape(b, k, -1)[:, 0], dim=-1)
     no_speech_prob = (probs0[:, no_speech] if no_speech >= 0
                       else torch.zeros(b, device=dev))
@@ -273,38 +307,46 @@ def _generate_beam(model: WhisperModel, mel: torch.Tensor, prompt: list[int],
     finished = torch.zeros((bk,), dtype=torch.bool, device=dev)
     row0 = torch.arange(b, device=dev)[:, None] * k
     all_done = False
+    step = -1
     for step in range(max_new):
-        if (step % FINISH_CHECK_STEPS == 0 and step > 0
-                and bool(finished.all())):
-            all_done = True      # this step sorts the beams, then stop
-        lg = logits + suppress_vec
-        if step == 0:
-            lg = lg + begin_suppress_vec
-        if timestamps:
-            lg = apply_timestamp_rules(lg, last, penult, last_ts, step,
-                                       ts_begin=ts_begin, eot=eot)
-        lp = torch.log_softmax(lg, dim=-1)                     # (bk, V)
-        v = lp.shape[-1]
-        ids = torch.arange(v, device=dev)
-        # finished beams: only EOT continues, score unchanged
-        lp = torch.where(finished[:, None],
-                         torch.where(ids[None, :] == eot, 0.0, neg), lp)
-        total = scores[:, None] + lp                           # (bk, V)
-        top_s, top_i = top_k_lower_index_first(total.reshape(b, k * v), k)
-        parent = top_i // v                                    # (b, k)
-        token = (top_i % v).reshape(bk)
-        gparent = (parent + row0).reshape(bk)
-        scores = top_s.reshape(bk)
-        seqs = seqs[gparent]
-        seqs[:, step] = token
-        penult = last[gparent]
-        last = token
-        last_ts = torch.where(token >= ts_begin, token, last_ts[gparent])
-        finished = finished[gparent] | (token == eot)
+        if step % FINISH_CHECK_STEPS == 0 and step > 0:
+            with stage("asr.finish_check"):
+                if bool(finished.all()):
+                    all_done = True  # this step sorts the beams, then stop
+        with stage("asr.step.rules"):
+            lg = logits + suppress_vec
+            if step == 0:
+                lg = lg + begin_suppress_vec
+            if timestamps:
+                lg = apply_timestamp_rules(lg, last, penult, last_ts, step,
+                                           ts_begin=ts_begin, eot=eot)
+            lp = torch.log_softmax(lg, dim=-1)                 # (bk, V)
+            v = lp.shape[-1]
+            ids = torch.arange(v, device=dev)
+            # finished beams: only EOT continues, score unchanged
+            lp = torch.where(finished[:, None],
+                             torch.where(ids[None, :] == eot, 0.0, neg), lp)
+        with stage("asr.step.select"):
+            total = scores[:, None] + lp                       # (bk, V)
+            top_s, top_i = top_k_lower_index_first(total.reshape(b, k * v),
+                                                   k)
+            parent = top_i // v                                # (b, k)
+            token = (top_i % v).reshape(bk)
+            gparent = (parent + row0).reshape(bk)
+            scores = top_s.reshape(bk)
+            seqs = seqs[gparent]
+            seqs[:, step] = token
+            penult = last[gparent]
+            last = token
+            last_ts = torch.where(token >= ts_begin, token, last_ts[gparent])
+            finished = finished[gparent] | (token == eot)
         if all_done or step + 1 == max_new:
             break
-        cache = DecoderCache(k=cache.k[:, gparent], v=cache.v[:, gparent])
-        logits = decoder_step(model, token, plen + step, cache, ckv)
+        with stage("asr.step.kv_gather"):
+            cache = DecoderCache(k=cache.k[:, gparent], v=cache.v[:, gparent])
+        with stage("asr.step.decoder"):
+            logits = decoder_step(model, token, plen + step, cache, ckv)
+    _ran(step + 1)
 
     # length-normalized selection per window (generated tokens before EOT)
     lens = (seqs != eot).sum(dim=1).to(torch.float32)
@@ -361,7 +403,8 @@ def generate_batch(assets: WhisperAssets, mel: torch.Tensor, *,
         toks, nsp, cache = _generate(model, mel, prompt, sup, bsup, cache,
                                      **kwargs)
     kv_pool.release(cache)
-    return toks.cpu().numpy().astype(np.int32), nsp.cpu().numpy()
+    with stage("asr.pull"):
+        return toks.cpu().numpy().astype(np.int32), nsp.cpu().numpy()
 
 
 @torch.inference_mode()

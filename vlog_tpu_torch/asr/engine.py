@@ -28,7 +28,19 @@ at every width. With no scheduler at all, a generic CUDA engine spreads
 over every visible card (the reference's ad-hoc mesh). Each batch feeds
 the runtime metrics (obs/metrics.py): batches, windows, occupancy, pad
 waste, windows per second, queue waits and
-``vlog_device_seconds{plane="asr"}``.
+``vlog_device_seconds{plane="asr"}`` (the tick's wall on the device's
+clock, so nothing on the CPU).
+
+Each tick's :attr:`AsrEngine.batch_log` entry is its record, kept
+without ``prometheus_client``: ``t0``/``t1`` (host ``perf_counter``),
+``wall_s`` (``obs/trace.py::DeviceClock`` around the tick on its
+devices, read after the tokens' pull; None on the CPU), ``steps`` (the
+decoder step loop's iterations) and the engine's time before the tick:
+``coalesce_s`` (the ``VLOG_ASR_TICK_S`` sleep), ``lease_s`` (the
+scheduler lease wait) and ``take_s`` (picking the key and taking the
+windows). The tick's steps are stage spans for a profiler session on the
+tick thread: ``asr.tick``, ``asr.mel``, the decoder's
+(``asr/decode.py``) and ``asr.post`` (segments and cues).
 """
 
 from __future__ import annotations
@@ -46,8 +58,13 @@ from vlog_tpu_torch.asr.load import WhisperAssets, load_whisper, replica_on
 from vlog_tpu_torch.asr.queue import BatchKey, WindowQueue, WorkItem
 from vlog_tpu_torch.asr.vtt import Cue
 from vlog_tpu_torch.obs.metrics import runtime
+from vlog_tpu_torch.obs.trace import DeviceClock, attach, stage
 from vlog_tpu_torch.parallel.mesh import visible_cuda_devices
 from vlog_tpu_torch.utils import failpoints
+
+
+# no time before a tick that the tick loop did not start (tests call _tick)
+_NO_WAIT = {"coalesce_s": 0.0, "lease_s": 0.0, "take_s": 0.0}
 
 
 class AsrJobError(RuntimeError):
@@ -155,8 +172,11 @@ class AsrEngine:
         self._thread: threading.Thread | None = None
         self._lease_held = threading.Event()    # observability only
         # Batch composition log for tests/stats: one entry per tick with
-        # rows/occupancy and the job of every packed window.
+        # rows/occupancy, the job of every packed window and the tick's
+        # record (module doc).
         self.batch_log: list[dict] = []         # guarded-by: _lock
+        # the tick thread's time before its next tick (tick thread only)
+        self._before_tick = _NO_WAIT
         self.windows_decoded = 0                # guarded-by: _lock
 
     # job lifecycle --------------------------------------------------------
@@ -174,8 +194,15 @@ class AsrEngine:
             self._jobs[job] = handle
             if not self._started:
                 self._started = True
+
+                def serve():
+                    # the tick thread serves every job, so it carries no
+                    # job's trace: its stage spans go to a profiler only
+                    with attach(None):
+                        self._run()
+
                 self._thread = threading.Thread(
-                    target=self._run, name="vlog-asr-engine", daemon=True)
+                    target=serve, name="vlog-asr-engine", daemon=True)
                 self._thread.start()
         return handle
 
@@ -238,10 +265,12 @@ class AsrEngine:
                     if lease is not None or ticket is not None:
                         _release()   # idle: give the slot back
                     continue
+                t0 = time.perf_counter()
                 if self.tick_s > 0:
                     # Coalesce: let concurrent jobs land windows before
                     # packing, so the first tick is not a batch of one.
                     time.sleep(self.tick_s)
+                t1 = time.perf_counter()
                 if self.scheduler is not None and lease is None:
                     from vlog_tpu_torch.parallel.scheduler import SlotCancelled
 
@@ -252,11 +281,15 @@ class AsrEngine:
                         _release()
                         continue
                     self._lease_held.set()
+                t2 = time.perf_counter()
                 key = self._queue.pick_key()
                 if key is None:
                     continue
                 items = self._queue.take(key, self.batch_windows)
                 if items:
+                    self._before_tick = {
+                        "coalesce_s": t1 - t0, "lease_s": t2 - t1,
+                        "take_s": time.perf_counter() - t2}
                     self._tick(key, items, lease)
                 # renegotiate at the tick boundary: a full-mesh lease
                 # goes back as soon as other demand queues, any lease
@@ -295,52 +328,69 @@ class AsrEngine:
         return [self.device]
 
     def _tick(self, key: BatchKey, items: list[WorkItem], lease=None) -> None:
+        with stage("asr.tick"):
+            self._tick_body(key, items, lease)
+
+    def _tick_body(self, key: BatchKey, items: list[WorkItem], lease) -> None:
+        before, self._before_tick = self._before_tick, _NO_WAIT
         t0 = time.monotonic()
+        t0_pc = time.perf_counter()
         rows = 0
         try:
             failpoints.hit("asr.batch")
             n = len(items)
             devices = self._batch_devices(lease)
             rows = self._bucket_rows(n, len(devices))
-            stack = [melmod.pad_or_trim(it.samples.astype(np.float32))
-                     for it in items]
-            stack += [np.zeros_like(stack[0])] * (rows - n)
-            # the whole batch's log-mel on the first device, then split
-            feats = melmod.log_mel_spectrogram(
-                np.stack(stack), n_mels=self.assets.cfg.num_mel_bins,
-                device=replica_on(self.assets, devices[0]).model.device)
-            from vlog_tpu_torch.asr.decode import parse_segments
+            from vlog_tpu_torch.asr.decode import parse_segments, take_steps
 
+            take_steps()
+            clock = DeviceClock(devices)
+            with stage("asr.mel"):
+                stack = [melmod.pad_or_trim(it.samples.astype(np.float32))
+                         for it in items]
+                stack += [np.zeros_like(stack[0])] * (rows - n)
+                # the whole batch's log-mel on the first device, then split
+                feats = melmod.log_mel_spectrogram(
+                    np.stack(stack), n_mels=self.assets.cfg.num_mel_bins,
+                    device=replica_on(self.assets, devices[0]).model.device)
             toks, no_speech = generate_rows(
                 self.assets, feats, devices, language=key.language,
                 task=key.task, max_new=key.max_new, beam=key.beam)
+            # the pull has drained the devices: the wall reads at once
+            clock.stop()
+            wall_s = clock.wall_s()
+            steps = take_steps()
             toks, no_speech = toks[:n], no_speech[:n]
             st = self.assets.tokens
             tokenizer = self.assets.tokenizer
             elapsed = time.monotonic() - t0
+            t1_pc = time.perf_counter()
             results = []
-            for row, nsp, it in zip(toks, no_speech, items):
-                cues: list[Cue] = []
-                if st.no_speech is None or nsp <= 0.6:
-                    for seg in parse_segments(row, st,
-                                              window_s=self.window_s):
-                        text = tokenizer.decode(
-                            [t for t in seg.token_ids if t < st.sot])
-                        cues.append(Cue(it.start_s + seg.start_s,
-                                        it.start_s + seg.end_s, text))
-                results.append((it, cues, t0 - it.enqueued_at))
+            with stage("asr.post"):
+                for row, nsp, it in zip(toks, no_speech, items):
+                    cues: list[Cue] = []
+                    if st.no_speech is None or nsp <= 0.6:
+                        for seg in parse_segments(row, st,
+                                                  window_s=self.window_s):
+                            text = tokenizer.decode(
+                                [t for t in seg.token_ids if t < st.sot])
+                            cues.append(Cue(it.start_s + seg.start_s,
+                                            it.start_s + seg.end_s, text))
+                    results.append((it, cues, t0 - it.enqueued_at))
         except Exception as exc:  # noqa: BLE001 — the engine must survive
             # one bad batch; the affected jobs' attempts fail through the
             # normal job-failure handling and the tick loop keeps serving.
             self._fail_items(items, exc)
             self._observe_batch_metrics(items, rows=0, elapsed=0.0,
-                                        failed=True)
+                                        wall_s=None, failed=True)
             return
         with self._lock:
             self.windows_decoded += n
             self.batch_log.append({
                 "rows": rows, "n": n, "occupancy": n / rows,
                 "jobs": [it.job for it in items], "elapsed_s": elapsed,
+                "t0": t0_pc, "t1": t1_pc, "wall_s": wall_s, "steps": steps,
+                **before,
             })
             handles = {it.job: self._jobs.get(it.job) for it in items}
         for it, cues, wait_s in results:
@@ -348,7 +398,7 @@ class AsrEngine:
             if h is not None and not h._cancelled.is_set():
                 h._deliver(it.index, cues, wait_s)
         self._observe_batch_metrics(items, rows=rows, elapsed=elapsed,
-                                    failed=False)
+                                    wall_s=wall_s, failed=False)
 
     def _fail_items(self, items: list[WorkItem], exc: BaseException) -> None:
         with self._lock:
@@ -361,7 +411,8 @@ class AsrEngine:
 
     @staticmethod
     def _observe_batch_metrics(items: list[WorkItem], *, rows: int,
-                               elapsed: float, failed: bool) -> None:
+                               elapsed: float, wall_s: float | None,
+                               failed: bool) -> None:
         m = runtime()
         m.asr_batches.labels(result="error" if failed else "ok").inc()
         if failed:
@@ -373,9 +424,10 @@ class AsrEngine:
         m.asr_pad_waste.set((rows - n) / rows if rows else 0.0)
         if elapsed > 0:
             m.asr_windows_per_second.set(n / elapsed)
-            # the whole batched forward (mel -> generate -> pull) counts
-            # as device time of the ASR plane
-            m.device_seconds.labels("asr", "forward").inc(elapsed)
+        if wall_s is not None:
+            # the batched forward (mel -> generate -> pull) on the
+            # device's clock
+            m.device_seconds.labels("asr", "forward").inc(wall_s)
         now = time.monotonic()
         for it in items:
             m.asr_queue_wait.observe(max(0.0, now - it.enqueued_at))

@@ -116,6 +116,9 @@ class RunResult:
     gop_len: int = 1
     # segments (summed across rungs) taken from disk by a resumed run
     resumed_segments: int = 0
+    # one record per device dispatch, where the path keeps them (the HEVC
+    # ladder: parallel/executor.py ``PipelineExecutor.timed_dispatch``)
+    dispatches: list = field(default_factory=list)
 
 
 def plan_rung_geometry(src_w: int, src_h: int, rung: config.QualityRung,

@@ -26,6 +26,13 @@ original thumbnail. A dispatch encodes only the chains that hold real
 frames (padded with copies of the last frame to the data width), and a
 lone chain only its real frames; the reference encodes the replicated
 tail too and drops it, so the bytes are the same.
+
+Each dispatch leaves a record in ``RunResult.dispatches`` (the
+executor's ``timed_dispatch``: enqueue and compute-done host times, the
+wall on the device's clock), and the loop's steps are stage spans
+(``executor.decode_wait``, ``executor.plan``, ``executor.reserve``,
+``executor.dispatch``, ``executor.submit``) for a profiler session on
+the dispatch thread.
 """
 
 from __future__ import annotations
@@ -41,7 +48,7 @@ from vlog_tpu_torch.backends.source import open_source
 from vlog_tpu_torch.codecs.hevc.api import HevcEncoder
 from vlog_tpu_torch.media.fmp4 import (Sample, TrackConfig, hvc1_sample_entry,
                                        init_segment, media_segment)
-from vlog_tpu_torch.obs.trace import STAGE_KEYS
+from vlog_tpu_torch.obs.trace import STAGE_KEYS, stage
 from vlog_tpu_torch.parallel.compile_cache import ensure_compile_cache
 from vlog_tpu_torch.parallel.executor import (DecodePrefetch,
                                               LaggedRateControl,
@@ -213,7 +220,8 @@ def run_hevc(backend, plan, progress_cb, resume: bool, t0: float) -> RunResult:
             with dispatch_streams(prog.devices):
                 while True:
                     td = time.perf_counter()
-                    item = prefetch.get()
+                    with stage("executor.decode_wait"):
+                        item = prefetch.get()
                     prof["decode_wait_s"] += time.perf_counter() - td
                     if item is None:
                         break
@@ -233,26 +241,35 @@ def run_hevc(backend, plan, progress_cb, resume: bool, t0: float) -> RunResult:
                     n_disp = lead[0] * lead[1]
                     # backpressure before planning, then the lagged
                     # feedback: every depth plans the same QPs
-                    pipe.reserve()
-                    rc.apply_upto(batch_idx - pipe.depth)
-                    pipe.note_pad_waste(n_real, n_disp)
-                    # tail: replicate the last frame, dropped after encode
-                    planes = [(np.concatenate(
-                        [p, np.repeat(p[-1:], n_disp - n_real, 0)])
-                        if n_disp > n_real else p)
-                        .reshape(lead + p.shape[1:]) for p in item]
-                    qps = {r.name: np.ascontiguousarray(
-                               controllers[r.name].frame_qps(batch_n)
-                               .reshape(chains_per, clen)[:lead[0], :lead[1]])
-                           for r in plan.rungs}
+                    with stage("executor.reserve"):
+                        pipe.reserve()
+                    with stage("executor.plan"):
+                        rc.apply_upto(batch_idx - pipe.depth)
+                        pipe.note_pad_waste(n_real, n_disp)
+                        # tail: replicate the last frame, dropped after
+                        # encode
+                        planes = [(np.concatenate(
+                            [p, np.repeat(p[-1:], n_disp - n_real, 0)])
+                            if n_disp > n_real else p)
+                            .reshape(lead + p.shape[1:]) for p in item]
+                        qps = {r.name: np.ascontiguousarray(
+                                   controllers[r.name].frame_qps(batch_n)
+                                   .reshape(chains_per, clen)
+                                   [:lead[0], :lead[1]])
+                               for r in plan.rungs}
+                        rc_params = {r.name:
+                                     controllers[r.name].device_rc_params()
+                                     for r in plan.rungs}
                     # each column stages the batch on its devices and
                     # leaves its rungs' outputs there
-                    outs = prog.dispatch(
-                        *planes, qps,
-                        {r.name: controllers[r.name].device_rc_params()
-                         for r in plan.rungs})
-                    pipe.submit({r.name: {k: outs[r.name][k] for k in _KEYS}
-                                 for r in plan.rungs}, n_real, qps)
+                    with stage("executor.dispatch"), \
+                            pipe.timed_dispatch(n_disp, prog.devices) as rec:
+                        outs = prog.dispatch(*planes, qps, rc_params)
+                    with stage("executor.submit"):
+                        pipe.submit({r.name: {k: outs[r.name][k]
+                                              for k in _KEYS}
+                                     for r in plan.rungs}, n_real, qps,
+                                    record=rec)
                     del outs, planes
                     batch_idx += 1
                     if rc.hunting():
@@ -284,4 +301,5 @@ def run_hevc(backend, plan, progress_cb, resume: bool, t0: float) -> RunResult:
         variants=variants, fps=fps,
         segment_duration_s=plan.segment_duration_s,
         stage_s={k: round(v, 3) for k, v in prof.items()} | pipe.gauges(),
-        gop_len=plan.gop_len, resumed_segments=start_segment * len(plan.rungs))
+        gop_len=plan.gop_len, resumed_segments=start_segment * len(plan.rungs),
+        dispatches=pipe.dispatches)

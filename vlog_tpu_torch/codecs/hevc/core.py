@@ -28,6 +28,12 @@ shifts and table lookups broadcast per row.
   ``jnp.roll`` does; the pads keep every read clear of the wrapped ring),
   the vertical pass gathers 8 (4) rows from the plane each pixel's
   fraction selects. Every gather index stays in range by the pads.
+
+Stage spans (``obs/trace.py::stage``, recorded only under a profiler
+session on the calling thread): ``hevc.intra``; per P frame
+``hevc.p_frame`` with ``hevc.me.integer``, ``hevc.me.subpel``,
+``hevc.residual`` and ``hevc.deblock`` under it; ``hevc.rc`` for the
+in-chain rate cascade.
 """
 
 from __future__ import annotations
@@ -41,6 +47,7 @@ from vlog_tpu_torch.codecs.h264.inter import edge_pad
 from vlog_tpu_torch.codecs.hevc import deblock as dbk
 from vlog_tpu_torch.codecs.hevc.transform import (LEVEL_SCALE, QUANT_SCALE,
                                                   T8, T16, T32, _QPC)
+from vlog_tpu_torch.obs.trace import stage
 from vlog_tpu_torch.ops.bitproxy import cost_proxy
 
 I32 = torch.int32
@@ -347,8 +354,11 @@ def _subpel_refine(cur, hplanes, mv_int, int_cost, *, pad, lam=2, n=32):
 def _p_ctb_search(cur, refp, hplanes, *, search, pad, lam=2, n=32):
     """Integer ME per nxn block, then sub-pel refinement: (B, H, W) ->
     ((B, H/n, W/n, 2) MVs in quarter pels, their costs)."""
-    mv, cost = _integer_search(cur, refp, search=search, pad=pad, lam=lam, n=n)
-    return _subpel_refine(cur, hplanes, mv, cost, pad=pad, lam=lam, n=n)
+    with stage("hevc.me.integer"):
+        mv, cost = _integer_search(cur, refp, search=search, pad=pad,
+                                   lam=lam, n=n)
+    with stage("hevc.me.subpel"):
+        return _subpel_refine(cur, hplanes, mv, cost, pad=pad, lam=lam, n=n)
 
 
 def to_blocks(plane: torch.Tensor, n: int) -> torch.Tensor:
@@ -435,9 +445,10 @@ def encode_p_frame_dsp(y, u, v, ref_y, ref_u, ref_v, qp, *, search: int = 16,
                                 n=32)
     if not partitions:
         part = torch.zeros((b, rr, cc), dtype=I32, device=y.device)
-        out = _p_residuals_and_recon(
-            y, u, v, cur, hplanes, _rep(mv32, 2), part, qp, qpc, pad, search,
-            ref_u, ref_v, partitions=False)
+        with stage("hevc.residual"):
+            out = _p_residuals_and_recon(
+                y, u, v, cur, hplanes, _rep(mv32, 2), part, qp, qpc, pad,
+                search, ref_u, ref_v, partitions=False)
         return _deblock_p(out, qp, qpc) if deblock else out
     mv16, _ = _p_ctb_search(cur, refp, hplanes, search=search, pad=pad, n=16)
 
@@ -487,8 +498,9 @@ def encode_p_frame_dsp(y, u, v, ref_y, ref_u, ref_v, qp, *, search: int = 16,
     mv_map = torch.where(part_cells == PART_2Nx2N, _rep(mv32, 2),
                          torch.where(part_cells == PART_2NxN, mvh_cells,
                                      mvv_cells))
-    out = _p_residuals_and_recon(y, u, v, cur, hplanes, mv_map, part, qp, qpc,
-                                 pad, search, ref_u, ref_v)
+    with stage("hevc.residual"):
+        out = _p_residuals_and_recon(y, u, v, cur, hplanes, mv_map, part, qp,
+                                     qpc, pad, search, ref_u, ref_v)
     return _deblock_p(out, qp, qpc) if deblock else out
 
 
@@ -497,13 +509,15 @@ def _deblock_p(out, qp, qpc):
     grid is TU32 in 2Nx2N CTBs and TU16 inside partitioned ones. Chroma
     needs bS 2 (intra), never on P pictures, so only luma is filtered."""
     lv32, lv16, part, mv_map, (ry, ru, rv) = out
-    cell_cbf = _rep((lv32[0] != 0).any(-1).any(-1), 2)      # (B, 2R, 2C)
-    if lv16 is not None:
-        cbf16 = (lv16[0] != 0).any(-1).any(-1)
-        cell_cbf = torch.where(_rep(part, 2) == PART_2Nx2N, cell_cbf, cbf16)
-    bs_v, bs_h = dbk.p_bs(part, cell_cbf, mv_map)
-    dy, du, dv = dbk.deblock_picture(ry, ru, rv, qp=qp, qpc=qpc, bs_v=bs_v,
-                                     bs_h=bs_h, chroma=False)
+    with stage("hevc.deblock"):
+        cell_cbf = _rep((lv32[0] != 0).any(-1).any(-1), 2)  # (B, 2R, 2C)
+        if lv16 is not None:
+            cbf16 = (lv16[0] != 0).any(-1).any(-1)
+            cell_cbf = torch.where(_rep(part, 2) == PART_2Nx2N, cell_cbf,
+                                   cbf16)
+        bs_v, bs_h = dbk.p_bs(part, cell_cbf, mv_map)
+        dy, du, dv = dbk.deblock_picture(ry, ru, rv, qp=qp, qpc=qpc,
+                                         bs_v=bs_v, bs_h=bs_h, chroma=False)
     return (lv32, lv16, part, mv_map,
             (dy.to(torch.uint8), du.to(torch.uint8), dv.to(torch.uint8)))
 
@@ -532,38 +546,44 @@ def encode_chain_dsp(y, u, v, search, qp_i, qp_p, partitions=False,
     qp_p = torch.as_tensor(qp_p, dtype=I32, device=dev)
     qp_p = torch.broadcast_to(qp_p if qp_p.dim() == 2 else qp_p.reshape(1, -1),
                               (b, max(t - 1, 1)))
-    (li, lui, lvi), rec_i = encode_frame_dsp(y[:, 0], u[:, 0], v[:, 0], qp_i,
-                                             deblock=deblock)
+    with stage("hevc.intra"):
+        (li, lui, lvi), rec_i = encode_frame_dsp(y[:, 0], u[:, 0], v[:, 0],
+                                                 qp_i, deblock=deblock)
     recon = rec_i
     if rc is not None:
-        budget = torch.clamp(torch.as_tensor(rc["budget"], dtype=torch.float32,
-                                             device=dev), min=1.0)
-        alpha = torch.as_tensor(rc["alpha"], dtype=torch.float32, device=dev)
-        costs = [cost_proxy(li, lui, lvi, batch_ndim=1)]
-        bal = torch.zeros((b,), dtype=torch.float32, device=dev)
-        qp_eff = []
+        with stage("hevc.rc"):
+            budget = torch.clamp(torch.as_tensor(
+                rc["budget"], dtype=torch.float32, device=dev), min=1.0)
+            alpha = torch.as_tensor(rc["alpha"], dtype=torch.float32,
+                                    device=dev)
+            costs = [cost_proxy(li, lui, lvi, batch_ndim=1)]
+            bal = torch.zeros((b,), dtype=torch.float32, device=dev)
+            qp_eff = []
     outs = []
     for k in range(1, t):
         qpf = qp_p[:, k - 1]
         if rc is not None:
-            adj = torch.clamp(torch.trunc(bal / (3.0 * budget)),
-                              -1.0, 8.0).to(I32)
-            qpf = torch.clamp(qpf + adj, 10, 51)
-        o = encode_p_frame_dsp(y[:, k], u[:, k], v[:, k], *recon, qpf,
-                               search=search, partitions=partitions,
-                               deblock=deblock)
+            with stage("hevc.rc"):
+                adj = torch.clamp(torch.trunc(bal / (3.0 * budget)),
+                                  -1.0, 8.0).to(I32)
+                qpf = torch.clamp(qpf + adj, 10, 51)
+        with stage("hevc.p_frame"):
+            o = encode_p_frame_dsp(y[:, k], u[:, k], v[:, k], *recon, qpf,
+                                   search=search, partitions=partitions,
+                                   deblock=deblock)
         recon = o[4]
         outs.append(o)
         if rc is not None:
-            cost = cost_proxy(*o[0], batch_ndim=1)
-            # anti-windup: credit bottoms at 3 frames of budget, debt tops
-            # at what +8 QP can repay; the I frame is not charged
-            step = torch.where(alpha > 0, cost * alpha - budget,
-                               torch.zeros_like(cost))
-            bal = torch.minimum(torch.maximum(bal + step, -3.0 * budget),
-                                30.0 * budget)
-            costs.append(cost)
-            qp_eff.append(qpf)
+            with stage("hevc.rc"):
+                cost = cost_proxy(*o[0], batch_ndim=1)
+                # anti-windup: credit bottoms at 3 frames of budget, debt
+                # tops at what +8 QP can repay; the I frame is not charged
+                step = torch.where(alpha > 0, cost * alpha - budget,
+                                   torch.zeros_like(cost))
+                bal = torch.minimum(torch.maximum(bal + step, -3.0 * budget),
+                                    30.0 * budget)
+                costs.append(cost)
+                qp_eff.append(qpf)
 
     def stack(items):
         return None if items[0] is None else torch.stack(items, 1)

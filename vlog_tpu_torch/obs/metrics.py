@@ -291,9 +291,10 @@ class RuntimeMetrics:
             "vlog_device_seconds",
             "Accelerator-attributed busy seconds per batch by plane and "
             "rung (ladder: rung='compute' = shared device compute wait, "
-            "rung=<name> = that rung's d2h pull; asr: rung='forward') — "
-            "read next to host_busy_s/host_occupancy for the d2h-vs-"
-            "compute split",
+            "rung=<name> = that rung's d2h pull; asr: rung='forward' = "
+            "each engine tick's wall on the device's clock, nothing "
+            "without CUDA) — read next to host_busy_s/host_occupancy for "
+            "the d2h-vs-compute split",
             ["plane", "rung"], registry=self.registry)
         self.profile_sessions = Counter(
             "vlog_profile_sessions_total",

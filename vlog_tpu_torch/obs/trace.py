@@ -27,6 +27,16 @@ busy-sums become ``stage.*`` spans, per-rung consumer busy-sums
 the overlap gauges (pipeline_depth, host_occupancy, ...) become
 attributes on the parent. Busy-sums are not intervals, so these spans
 share the parent's ``started_at`` and carry ``synthetic: true``.
+
+Hot-path spans: :func:`stage` names a step of a device unit (a ladder
+dispatch, an engine tick) for a device trace. It opens a profiler range
+only while a ``torch.profiler`` session records the calling thread (the
+profiler's host recording is per thread), so the step lands among the
+session's host events on the kernels' clock; with no session it costs
+one check and returns a shared no-op context.
+:class:`DeviceClock` times a unit on the device's own clock (CUDA events
+on each device's current stream) for the records the program keeps
+always on: ``RunResult.dispatches`` and ``AsrEngine.batch_log``.
 """
 
 from __future__ import annotations
@@ -39,9 +49,11 @@ from contextvars import ContextVar
 from dataclasses import dataclass, field
 from typing import Iterator
 
+import torch
+
 __all__ = [
     "Span", "TraceBuffer", "TraceContext", "new_id", "current", "capture",
-    "attach", "span", "event", "record_run_stages",
+    "attach", "span", "event", "record_run_stages", "stage", "DeviceClock",
 ]
 
 # The five cumulative busy-seconds fields RunResult.stage_s has carried
@@ -222,3 +234,66 @@ def record_run_stages(parent: Span, stage_s: dict | None) -> None:
                   started_at=parent.started_at, synthetic=True)
         else:
             parent.attrs[key] = val
+
+
+# --------------------------------------------------------------------------
+# Hot-path stage spans and device-clock walls
+# --------------------------------------------------------------------------
+
+_profiling = torch.autograd._profiler_enabled
+_NO_STAGE = contextlib.nullcontext()
+
+
+def stage(name: str):
+    """A named step of a device unit, as a context manager.
+
+    While a ``torch.profiler`` session records the calling thread this is
+    a fast record function (``torch._C._profiler._RecordFunctionFast``),
+    so the step's host interval lands among the session's host events
+    beside the operators it ran. It is an operator-scope range: unlike
+    ``torch.profiler.record_function``'s user annotations it adds no
+    range to the device's timeline, where a reader of the trace would
+    count it as device time. Otherwise it is one check and the shared
+    no-op context: no :class:`Span`, id, contextvar or range, so the
+    ladder's and the engine's inner loops keep it on unconditionally."""
+    if not _profiling():
+        return _NO_STAGE
+    return torch._C._profiler._RecordFunctionFast(name)
+
+
+class DeviceClock:
+    """The wall of one unit of device work on the device's clock.
+
+    Construction records a timing event on the current stream of each
+    distinct CUDA device in ``devices`` (call it before the unit's first
+    launch, on the thread that launches); :meth:`stop` records a second
+    one after the last. :meth:`wall_s` is the longest elapsed time
+    between the two over the devices: from the stream reaching the unit
+    to the end of its last kernel, idle gaps inside included. Read it
+    once the unit's work is known done (a host copy of its outputs has
+    landed): its wait on the end events then returns at once. Without a
+    CUDA device it is None."""
+
+    __slots__ = ("_marks",)
+
+    def __init__(self, devices=()):
+        self._marks: list = []
+        for d in dict.fromkeys(torch.device(d) for d in devices):
+            if d.type == "cuda":
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record(torch.cuda.current_stream(d))
+                self._marks.append((d, ev, torch.cuda.Event(
+                    enable_timing=True)))
+
+    def stop(self) -> None:
+        for d, _, end in self._marks:
+            end.record(torch.cuda.current_stream(d))
+
+    def wall_s(self) -> float | None:
+        if not self._marks:
+            return None
+        walls = []
+        for _, start, end in self._marks:
+            end.synchronize()
+            walls.append(start.elapsed_time(end) / 1e3)
+        return max(walls)

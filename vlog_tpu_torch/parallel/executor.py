@@ -56,7 +56,16 @@ Profiling: ``compute_wait_s`` / ``device_pull_s`` here, ``entropy_s`` /
 ``package_s`` from the path callbacks through :meth:`prof_add` —
 cumulative busy seconds per stage — and :meth:`gauges` adds the overlap
 view: configured depth, deepest window reached, consume-side busy vs
-wall seconds.
+wall seconds. A path that queues its dispatch inside
+:meth:`PipelineExecutor.timed_dispatch` also gets one record per
+dispatch in :attr:`PipelineExecutor.dispatches` (host times of the
+enqueue and of the compute seen done, and the dispatch's wall on the
+device's clock, read once the first consumer's ``ready`` has waited on
+the compute), and the sums ``enqueue_s`` and ``dispatch_wall_s``.
+
+Thread hand-offs (the rung consumers, the host pool's side tasks, the
+decode prefetch) carry the run's trace context (``obs/trace.py``
+``capture``/``attach``).
 """
 
 from __future__ import annotations
@@ -75,6 +84,7 @@ import torch
 
 from vlog_tpu_torch import config
 from vlog_tpu_torch.obs.metrics import runtime
+from vlog_tpu_torch.obs.trace import DeviceClock, attach, capture
 from vlog_tpu_torch.parallel.mesh import Sharded
 from vlog_tpu_torch.utils import failpoints
 
@@ -95,6 +105,12 @@ def _map_tensors(tree: Any, fn: Callable[[torch.Tensor], Any]) -> Any:
     if isinstance(tree, (list, tuple)):
         return type(tree)(_map_tensors(v, fn) for v in tree)
     return tree
+
+
+def _attached(ctx, fn: Callable, *args: Any) -> Any:
+    """``fn(*args)`` under the trace context ``ctx`` (a pool task)."""
+    with attach(ctx):
+        return fn(*args)
 
 
 def _cuda_tensors(tree: Any) -> list[torch.Tensor]:
@@ -233,16 +249,17 @@ class StagedBatch:
     plan QPs rate-control attribution needs, ``extra`` any path-specific
     payload."""
 
-    __slots__ = ("index", "outs", "n_real", "qps", "extra", "d2h",
+    __slots__ = ("index", "outs", "n_real", "qps", "extra", "d2h", "record",
                  "_ready_lock", "_ready", "_remaining")
 
     def __init__(self, index: int, outs: Any, n_real: int, qps: Any,
-                 extra: Any, n_rungs: int):
+                 extra: Any, n_rungs: int, record: dict | None = None):
         self.index = index
         self.outs = outs
         self.n_real = n_real
         self.qps = qps
         self.extra = extra
+        self.record = record          # its timed_dispatch record, if any
         self.d2h: HostCopy | None = None
         self._ready_lock = threading.Lock()       # lock-order: 32
         self._ready = False
@@ -294,6 +311,10 @@ class PipelineExecutor:
         self._t_last: float | None = None
         self._aux: list = []
         self._copy_streams: dict = {}     # device -> its copy stream
+        # one record per timed dispatch; the clocks by record index until
+        # the first consumer reads them (both under _prof_lock)
+        self.dispatches: list[dict] = []
+        self._clocks: dict[int, DeviceClock] = {}
         self._own_pool = host_pool is None
         if host_pool is None:
             host_pool = ThreadPoolExecutor(
@@ -302,10 +323,11 @@ class PipelineExecutor:
         self.host_pool = host_pool
         self._queues: dict[str, queue_mod.Queue] = {}
         self._threads: list[threading.Thread] = []
+        ctx = capture()
         for rname in rung_names:
             q: queue_mod.Queue = queue_mod.Queue()
             self._queues[rname] = q
-            t = threading.Thread(target=self._rung_loop, args=(rname, q),
+            t = threading.Thread(target=self._rung_loop, args=(rname, q, ctx),
                                  daemon=True, name=f"{name}-{rname}")
             self._threads.append(t)
             t.start()
@@ -358,6 +380,42 @@ class PipelineExecutor:
         }
 
     # ---- dispatch-thread API -----------------------------------------
+    @contextlib.contextmanager
+    def timed_dispatch(self, frames: int, devices):
+        """Time the dispatch queued inside (on the dispatch thread, inside
+        its compute streams) and yield its record for :meth:`submit`:
+        ``index``, ``frames``, ``t_enqueue0``/``t_enqueue1`` (host
+        ``perf_counter`` around the enqueue), and, once the first consumer
+        has waited on the compute, ``t_done`` and ``wall_s`` (the longest
+        :class:`~vlog_tpu_torch.obs.trace.DeviceClock` wall over
+        ``devices``; None without CUDA). Adds the enqueue to ``enqueue_s``
+        and, when read, the wall to ``dispatch_wall_s``."""
+        with self._prof_lock:
+            self.prof.setdefault("enqueue_s", 0.0)
+            self.prof.setdefault("dispatch_wall_s", 0.0)
+            index = len(self.dispatches)
+        rec = {"index": index, "frames": int(frames),
+               "t_enqueue0": time.perf_counter(), "t_enqueue1": None,
+               "t_done": None, "wall_s": None}
+        clock = DeviceClock(devices)
+        yield rec
+        clock.stop()
+        rec["t_enqueue1"] = time.perf_counter()
+        self.prof_add("enqueue_s", rec["t_enqueue1"] - rec["t_enqueue0"])
+        with self._prof_lock:
+            self.dispatches.append(rec)
+            self._clocks[index] = clock
+
+    def _read_clock(self, rec: dict) -> None:
+        """Stamp a dispatch record once its compute is seen done."""
+        rec["t_done"] = time.perf_counter()
+        with self._prof_lock:
+            clock = self._clocks.pop(rec["index"], None)
+        wall = None if clock is None else clock.wall_s()
+        rec["wall_s"] = wall
+        if wall is not None:
+            self.prof_add("dispatch_wall_s", wall)
+
     def _await_slot_locked(self) -> None:
         """Wait for a free in-flight slot; caller holds ``_cond``.
         Raises the first consumer failure instead of waiting forever."""
@@ -385,11 +443,12 @@ class PipelineExecutor:
             self._reserved += 1
 
     def submit(self, outs: Any, n_real: int, qps: Any = None,
-               extra: Any = None) -> StagedBatch:
+               extra: Any = None, record: dict | None = None) -> StagedBatch:
         """Hand a staged batch to the consumers (dispatch thread only,
         inside the stream its kernels were queued on), in the slot
         :meth:`reserve` claimed (or a slot claimed here). Starts the
-        copies of ``outs``, then enqueues the batch to every rung."""
+        copies of ``outs``, then enqueues the batch to every rung.
+        ``record`` is the batch's :meth:`timed_dispatch` record."""
         with self._cond:
             if self._reserved:
                 self._reserved -= 1
@@ -397,7 +456,7 @@ class PipelineExecutor:
                 self._await_slot_locked()
                 self._claim_locked()
             batch = StagedBatch(self._submitted, outs, n_real, qps, extra,
-                                len(self._queues))
+                                len(self._queues), record)
             self._submitted += 1
             if self._t_first is None:
                 self._t_first = time.perf_counter()
@@ -416,7 +475,8 @@ class PipelineExecutor:
     def submit_aux(self, fn: Callable, *args: Any) -> None:
         """Run a side task (the first batch's thumbnail) on the host
         pool; its failure surfaces at the next drain()."""
-        self._aux.append(self.host_pool.submit(fn, *args))
+        self._aux.append(self.host_pool.submit(_attached, capture(), fn,
+                                               *args))
 
     def drain(self) -> None:
         """Wait until every submitted batch is fully consumed (depth 0)
@@ -452,18 +512,19 @@ class PipelineExecutor:
             self.host_pool.shutdown(wait=True)
 
     # ---- consumer side -----------------------------------------------
-    def _rung_loop(self, rname: str, q: queue_mod.Queue) -> None:
-        while True:
-            batch = q.get()
-            if batch is _STOP:
-                return
-            try:
-                if self._failure is None and not self._stop.is_set():
-                    self._consume(rname, batch)
-            except BaseException as exc:  # noqa: BLE001 — relayed to dispatch
-                self._fail(exc)
-            finally:
-                self._done(batch)
+    def _rung_loop(self, rname: str, q: queue_mod.Queue, ctx) -> None:
+        with attach(ctx):
+            while True:
+                batch = q.get()
+                if batch is _STOP:
+                    return
+                try:
+                    if self._failure is None and not self._stop.is_set():
+                        self._consume(rname, batch)
+                except BaseException as exc:  # noqa: BLE001 — relayed
+                    self._fail(exc)
+                finally:
+                    self._done(batch)
 
     def _consume(self, rname: str, batch: StagedBatch) -> None:
         if self._ready is not None and not batch._ready:
@@ -472,6 +533,8 @@ class PipelineExecutor:
                     t0 = time.perf_counter()
                     self._ready(batch)
                     dt = time.perf_counter() - t0
+                    if batch.record is not None:
+                        self._read_clock(batch.record)
                     self.prof_add("compute_wait_s", dt)
                     self.note_device_seconds("compute", dt)
                     batch._ready = True
@@ -584,11 +647,15 @@ class DecodePrefetch:
         self._fifo: queue_mod.Queue = queue_mod.Queue(maxsize=maxsize)
         self._stop = threading.Event()
         self._thread = threading.Thread(
-            target=self._produce, args=(src, batch_n, start_frame),
+            target=self._produce, args=(src, batch_n, start_frame, capture()),
             daemon=True, name="vlog-decode-prefetch")
         self._thread.start()
 
-    def _produce(self, src, batch_n: int, start_frame: int) -> None:
+    def _produce(self, src, batch_n: int, start_frame: int, ctx) -> None:
+        with attach(ctx):
+            self._produce_all(src, batch_n, start_frame)
+
+    def _produce_all(self, src, batch_n: int, start_frame: int) -> None:
         try:
             for item in src.read_batches(batch_n, start_frame):
                 while not self._stop.is_set():

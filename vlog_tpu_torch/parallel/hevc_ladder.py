@@ -10,6 +10,9 @@ per frame, and int16 levels and MVs out; reconstructions never leave the
 device. Every CTB is a 2Nx2N inter CU (no partitions), the C entropy
 coder's contract. Over several devices :func:`hevc_chain_ladder_grid`
 lays the ladder out as a (data x rung) grid (``ladder.GridProgram``).
+Stage spans (``obs/trace.py::stage``): ``hevc.rung`` per rung, with
+``hevc.resize`` (resize and CTB padding) under it and the chain DSP's
+own spans (``codecs/hevc/core.py``).
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ from vlog_tpu_torch.codecs.h264.inter import edge_pad
 from vlog_tpu_torch.codecs.hevc.core import encode_chain_dsp
 from vlog_tpu_torch.codecs.hevc.syntax import CTB
 from vlog_tpu_torch.device import resolve_device
+from vlog_tpu_torch.obs.trace import stage
 from vlog_tpu_torch.ops.fused_resize import resize_yuv420
 from vlog_tpu_torch.parallel.ladder import (GridProgram, RungSpec,
                                             _as_tensor, _grid_program,
@@ -50,7 +54,9 @@ def _sse(rec_y: torch.Tensor, src_y: torch.Tensor, h: int, w: int):
 def _one_rung(y, u, v, rung_mats, qps, h, w, *, search, deblock, rcr):
     n, clen = y.shape[0], y.shape[1]
     flat = lambda p: p.reshape((n * clen,) + tuple(p.shape[2:]))  # noqa: E731
-    py, pu, pv = _pad_ctb(*resize_yuv420(flat(y), flat(u), flat(v), rung_mats))
+    with stage("hevc.resize"):
+        py, pu, pv = _pad_ctb(*resize_yuv420(flat(y), flat(u), flat(v),
+                                             rung_mats))
     unflat = lambda p: p.reshape((n, clen) + tuple(p.shape[1:]))  # noqa: E731
     py, pu, pv = unflat(py), unflat(pu), unflat(pv)
 
@@ -99,12 +105,15 @@ def hevc_chain_ladder_program(rungs: tuple[RungSpec, ...], src_h: int,
 
     def fn(y, u, v, mats, qps, rc=None):
         y, u, v = (torch.as_tensor(p, device=dev) for p in (y, u, v))
-        return {name: _one_rung(
+        out = {}
+        for name, h, w, _ in rungs:
+            with stage("hevc.rung"):
+                out[name] = _one_rung(
                     y, u, v, mats[name],
                     _as_tensor(qps[name], dev, torch.int32), h, w,
                     search=search, deblock=deblock,
                     rcr=None if rc is None else rc[name])
-                for name, h, w, _ in rungs}
+        return out
 
     return fn, mats
 
