@@ -5,9 +5,10 @@
 Phases (any failure exits non-zero; none is caught):
 
 1. the card's name and power limit (nvidia-smi);
-2. build the fused resize kernel (nvcc, sm_90a) and the native entropy
-   coders (CABAC, CAVLC, JPEG scan) from the checkout's sources, the two
-   builds started together, timed;
+2. build the fused resize kernel and the HEVC motion search kernel
+   (nvcc, sm_90a) and the native entropy coders (CABAC, CAVLC, JPEG
+   scan) from the checkout's sources, the three builds started together,
+   timed;
 2a. analysis: the port's static-analysis passes
    (``vlog_tpu_torch.analysis.run_passes``) over the checkout's
    ``vlog_tpu_torch/`` on this machine's Python: the count of findings
@@ -27,8 +28,19 @@ Phases (any failure exits non-zero; none is caught):
    work (the larger of bytes over the memory rate and the FLOP of the
    matrices' nonzero taps over the FP32 rate) and the kernel's share of
    it; the card's clocks, temperature and power before and after;
+3a. the HEVC motion search kernel against the plain search stages
+   (``codecs/hevc/core.py``: ``_integer_search``, ``_subpel_refine``) on
+   the card at the four rung shapes of the 1080p ladder, CTB-padded
+   (1088x1920, 736x1280, 480x864, 384x640), 6 chains of moving content,
+   the configured search: MVs and costs identical; the kernel's device
+   ms per call (the timer above), its host-inclusive call ms, its bound
+   (the larger of its int32 inputs' bytes over the memory rate and its
+   SAD and filter operations over the int32 rate) and share of it, and
+   the plain version's device and call ms;
 4. the integer stages (intra, P, deblock) on CPU and on CUDA from the
    same uint8 frames: levels, MVs and reconstructions must be identical;
+   the HEVC motion search on the CPU (the plain stages) and on CUDA (the
+   kernel) at both block sizes: MVs and costs identical;
 5. the slice: the first 4 frames of a seeded synthetic 1920x1080 Y4M
    through ``TorchBackend(device="cuda").plan/run`` with the defaults
    (default ladder, thumbnail, resume, the executor at depth 2: one
@@ -37,7 +49,8 @@ Phases (any failure exits non-zero; none is caught):
    the reference's stage keys and the executor's gauges
    (``max_in_flight`` >= 1); the CMAF tree must parse with the port's
    own readers, the kernel's launch counter must rise by 3 scaled rungs
-   x 3 planes x 1 launch per dispatch plus 3 for the thumbnail, each
+   x 3 planes x 1 launch per dispatch plus 3 for the thumbnail (and the
+   motion search kernel's not at all: the slice is H.264), each
    rung's mean PSNR-Y must clear a floor, the journal must hold one line
    per dispatch after its header, and ``thumbnail.jpg`` must be a
    1280x720 JPEG, the packed blocks of the backend's thumbnail stages
@@ -59,7 +72,7 @@ Phases (any failure exits non-zero; none is caught):
    dispatch (9 launches, each rung's PSNR-Y above the floor); and the GPU
    image's warm-up step (the ``RUN python - <<'PY'`` heredoc of
    ``deploy/gpu/Dockerfile.worker-gpu``, as written, in a subprocess
-   beside the phase) building the native coders and the kernel into a
+   beside the phase) building the native coders and both kernels into a
    fresh build directory;
 7. pipeline: the first 3 samples of the slice's 1080p rung (1 IDR + 2
    P, CABAC, deblocked, its rate control's QPs; cut from 4 for time),
@@ -100,7 +113,8 @@ Phases (any failure exits non-zero; none is caught):
 10a. hevc: the 24-frame source through ``process_video(src, out,
    backend=get_backend("torch"), codec="h265")`` with the defaults (the
    4-rung ladder, one 24-frame I+P chain in one dispatch, deblocking,
-   rate control, thumbnail): 12 launches (9 + 3 for the thumbnail), the
+   rate control, thumbnail): 12 launches (9 + 3 for the thumbnail) and
+   92 of the motion search kernel (23 P frames x 4 rungs), the
    tree parses with the port's readers (hvc1 sample entry with the
    encoder's hvcC, every segment's samples), ``outputs.json`` verifies,
    hvc1 ``qualities`` rows, the PSNR floor, seconds per step and
@@ -284,6 +298,14 @@ Phases (any failure exits non-zero; none is caught):
    version afterwards on seeded planes with the matrices it used;
 12. where one 1080p frame's device time goes, stage by stage.
 
+Every phase from the slice on counts the HEVC motion search kernel's
+launches in its runs of the main path: the counter is set to 0 just
+before a run and must then read the run's plan (rungs x P steps of
+each dispatch, x the data width on a grid; 0 in a phase that runs no
+HEVC; the daemon's per job, as its cancelled attempt stops where its
+timeout lands). The kernels line sums them by phase; the launches made
+only for checks (3a, 4, the card-vs-CPU comparisons, 12) count nowhere.
+
 Each phase prints its wall seconds. Prints a ``{"kernels": [...]}``
 line, the card's name and power limit, then as the last line
 ``{"ok": true, "device": {...}}``. Imports nothing of JAX or vlog_tpu.
@@ -310,9 +332,12 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 
-# H100 SXM data sheet peaks (non-tensor FP32; HBM3).
+# H100 SXM data sheet peaks (non-tensor FP32; HBM3). The int32 rate:
+# 132 SMs x 64 int32 lanes at the 1.98 GHz boost clock (half the FP32
+# lanes, an operation a lane a clock).
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_PER_S = 3.35e12
+PEAK_INT32_OPS = 16.7e12
 
 # Kernel vs plain version on the card: both are float32 with different
 # summation orders, so a value within an ulp of x.5 may round the other
@@ -344,6 +369,12 @@ L2_FLUSH_BYTES = 256 << 20   # > the 50 MB L2: each profiled call starts cold
 CLOCKS_QUERY = ("--query-gpu=clocks.sm,clocks.mem,clocks.max.sm,"
                 "temperature.gpu,power.draw")
 RUNG_SHAPES = ((720, 1280), (480, 854), (360, 640))
+# The HEVC motion search: the 1080p ladder's luma rungs padded to whole
+# CTBs, 6 chains (a 144-frame dispatch), its plain version timed at
+# ME_PLAIN_REPS (it launches ~2,000 kernels a call)
+ME_SHAPES = ((1088, 1920), (736, 1280), (480, 864), (384, 640))
+ME_CHAINS = 6
+ME_PLAIN_REPS = 3
 # Frames per kernel call on the driven paths: a 24-frame chain (hevc,
 # the scheduler's HEVC job, the daemon's and the remote phase's
 # re-encodes; the library phase's ladder resize), an intra dispatch of 8
@@ -643,22 +674,26 @@ def witness_end(base: dict, phase_s: dict) -> None:
 
 def phase_build():
     from vlog_tpu_torch.native import build as native_build
-    from vlog_tpu_torch.ops import fused_resize
+    from vlog_tpu_torch.ops import fused_resize, motion_search
 
     def timed(fn):
         t0 = time.perf_counter()
         fn()
         return time.perf_counter() - t0
 
-    # nvcc and g++ run at once; an error in either is raised here
-    with ThreadPoolExecutor(2) as pool:
+    # both nvcc runs and g++ at once; an error in any is raised here
+    with ThreadPoolExecutor(3) as pool:
         kernel = pool.submit(timed, fused_resize.load_library)
+        me = pool.submit(timed, motion_search.load_library)
         native = pool.submit(timed, native_build.get_lib)
-        t_kernel, t_native = kernel.result(), native.result()
-    report = [ln.strip() for ln in fused_resize.build_log.splitlines()
-              if "registers" in ln or "spill" in ln or "Compiling" in ln]
-    log("ptxas: " + " | ".join(report))
+        t_kernel, t_me, t_native = (kernel.result(), me.result(),
+                                    native.result())
+    for mod in (fused_resize, motion_search):
+        report = [ln.strip() for ln in mod.build_log.splitlines()
+                  if "registers" in ln or "spill" in ln or "Compiling" in ln]
+        log(f"ptxas ({mod.__name__.rsplit('.', 1)[1]}): " + " | ".join(report))
     log(f"build: fused_resize {t_kernel:.2f}s (nvcc {fused_resize.build_seconds:.2f}s), "
+        f"motion_search {t_me:.2f}s (nvcc {motion_search.build_seconds:.2f}s), "
         f"native CABAC/CAVLC/JPEG {t_native:.2f}s")
 
 
@@ -768,6 +803,95 @@ def phase_kernel(timer: DeviceTimer, n: int) -> dict:
     return {"max_abs_err": worst, **tot}
 
 
+def _me_planes(ref, cur, search: int, dev):
+    """The motion search's inputs for ``cur`` against ``ref`` (uint8
+    (chains, H, W) arrays): cur as int32, the edge-padded reference, its
+    luma fraction planes, the pad (as the P frame pads)."""
+    from vlog_tpu_torch.codecs.h264.inter import edge_pad
+    from vlog_tpu_torch.codecs.hevc import core
+
+    def on_dev(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=dev).to(torch.int32)
+
+    pad = search + 8
+    refp = edge_pad(on_dev(ref), pad, pad, pad, pad)
+    return on_dev(cur), refp, core._hfiltered_planes(refp, core._LTAPS), pad
+
+
+def _me_case(h: int, w: int, chains: int, search: int, seed: int, dev):
+    """:func:`_me_planes` for ``chains`` pairs of moving frames (each
+    chain's frame 1 against its frame 0)."""
+    ys = np.stack([_smooth_frames(2, h, w, seed + c)[0] for c in range(chains)])
+    return _me_planes(ys[:, 0], ys[:, 1], search, dev)
+
+
+def _me_plain(cur, refp, hplanes, search: int, pad: int, n: int = 32):
+    """The plain search stages, on whatever device the tensors are."""
+    from vlog_tpu_torch.codecs.hevc import core
+
+    mv, cost = core._integer_search(cur, refp, search=search, pad=pad, n=n)
+    return core._subpel_refine(cur, hplanes, mv, cost, pad=pad, n=n)
+
+
+def phase_me_kernel(timer: DeviceTimer) -> dict:
+    """The HEVC motion search kernel at the ladder's rung shapes: held to
+    the plain stages bit for bit, timed against them and its bound."""
+    from vlog_tpu_torch import config
+    from vlog_tpu_torch.codecs.hevc import core
+
+    dev = torch.device("cuda")
+    search = config.MOTION_SEARCH_RADIUS
+    rows = []
+    for k, (h, w) in enumerate(ME_SHAPES):
+        cur, refp, hplanes, pad = _me_case(h, w, ME_CHAINS, search, 20 + k, dev)
+
+        def kern():
+            return core._p_ctb_search(cur, refp, hplanes, search=search, pad=pad)
+
+        def plain():
+            return _me_plain(cur, refp, hplanes, search, pad)
+
+        got, want = kern(), plain()
+        for a, b, what in zip(got, want, ("MVs", "costs")):
+            if not torch.equal(a, b):
+                fail(f"motion search kernel {what} differ from the plain "
+                     f"stages at {h}x{w}: {int((a != b).sum())} of {a.numel()}")
+        blocks = ME_CHAINS * (h // 32) * (w // 32)
+        # bytes: cur, the padded reference's search area and the four
+        # fraction planes' picture area, int32, read once; the MVs and
+        # costs written once. Operations: the integer SADs, four byte
+        # differences a packed lane operation, and the refinement's 16
+        # candidates x 8 taps a pixel.
+        nbytes = (4 * ME_CHAINS * (h * w + (h + 2 * search) * (w + 2 * search)
+                                   + 4 * h * w) + 12 * blocks)
+        ops = blocks * 32 * 32 * ((2 * search + 1) ** 2 / 4 + 16 * 8)
+        row = {"shape": [ME_CHAINS, h, w], "search": search, "blocks": blocks,
+               "max_abs_mv_qpel": int(got[0].abs().max())}
+        row["ms"] = timer.ms(kern, REPS)
+        if timer.kernels_per_call != 1:
+            fail(f"motion search: {timer.kernels_per_call} kernels a call")
+        row["call_ms"] = call_ms(kern, REPS)
+        row["plain_ms"] = timer.ms(plain, ME_PLAIN_REPS)
+        row["plain_kernels_per_call"] = timer.kernels_per_call
+        row["plain_call_ms"] = call_ms(plain, ME_PLAIN_REPS)
+        row["bytes_ms"] = nbytes / PEAK_BYTES_PER_S * 1e3
+        row["ops_ms"] = ops / PEAK_INT32_OPS * 1e3
+        row["bound_ms"] = max(row["bytes_ms"], row["ops_ms"])
+        row["bound_by"] = "bytes" if row["bytes_ms"] >= row["ops_ms"] else "operations"
+        row["share_of_bound"] = row["bound_ms"] / row["ms"]
+        rows.append(row)
+        log("motion search " + json.dumps(row))
+        del cur, refp, hplanes, got, want
+    # one 144-frame dispatch: 23 P steps, each rung once
+    tot = {key: (FRAMES - 1) * sum(r[key] for r in rows)
+           for key in ("ms", "call_ms", "plain_ms", "plain_call_ms",
+                       "bound_ms")}
+    tot["share_of_bound"] = tot["bound_ms"] / tot["ms"]
+    log("motion search per 144-frame dispatch (23 P steps x 4 rungs) "
+        + json.dumps(tot))
+    return tot
+
+
 def _smooth_frames(n: int, h: int, w: int, seed: int):
     """Seeded 4:2:0 frames: a panning smooth texture, a moving square,
     mild noise (content with real motion for ME and deblocking)."""
@@ -837,6 +961,21 @@ def phase_integer(devices=("cpu", "cuda")) -> None:
         fail(f"cost_proxy differs between devices: {costs} (rel {rel:.2e})")
     log(f"cost_proxy: {devices[0]} {costs[0]!r}, {devices[1]} {costs[1]!r} "
         f"(rel diff {rel:.3e})")
+    # the HEVC motion search: the plain stages on the CPU, the kernel on
+    # CUDA, at both block sizes
+    from vlog_tpu_torch.codecs.hevc import core
+
+    for n in (16, 32):
+        found = []
+        for dev in devices:
+            cur, refp, hplanes, pad = _me_case(96, 160, 2, 8, 30, dev)
+            found.append([a.cpu().numpy() for a in core._p_ctb_search(
+                cur, refp, hplanes, search=8, pad=pad, n=n)])
+        if not all(np.array_equal(a, b) for a, b in zip(*found)):
+            fail(f"hevc motion search (n={n}) differs between "
+                 f"{devices[0]} and {devices[1]}")
+    log(f"hevc motion search: MVs and costs identical on {devices[0]} and "
+        f"{devices[1]} at n=16 and n=32")
 
 
 def phase_breakdown() -> None:
@@ -962,11 +1101,10 @@ def _jpeg_size(data: bytes) -> tuple[int, int]:
             int.from_bytes(data[sof + 7:sof + 9], "big"))
 
 
-def _frames_per_call(plan, phase: str, frames: int) -> list[int]:
+def _call_counts(plan, frames: int) -> list[int]:
     """Frames per kernel call of each dispatch of a plan over ``frames``
     source frames (the backend dispatches only the chains that hold real
-    frames, a lone chain cut to its last real frame); fails unless the
-    kernel phase held the kernel at every such count."""
+    frames, a lone chain cut to its last real frame)."""
     clen = plan.gop_len
     if clen > 1:
         batch_n = max(1, -(-plan.frame_batch // clen)) * clen
@@ -978,11 +1116,53 @@ def _frames_per_call(plan, phase: str, frames: int) -> list[int]:
         chains = -(-n_real // clen)
         counts.append(batch_n if clen == 1 else
                       chains * clen if chains > 1 else max(2, n_real))
+    return counts
+
+
+def _frames_per_call(plan, phase: str, frames: int) -> list[int]:
+    """:func:`_call_counts`; fails unless the kernel phase held the
+    kernel at every such count."""
+    counts = _call_counts(plan, frames)
     bad = sorted(set(counts) - set(COMPARE_N))
     if bad:
         fail(f"{phase}: the kernel is called with {bad} frames, counts the "
              f"kernel phase did not hold ({COMPARE_N})")
     return counts
+
+
+# The HEVC motion search's launches in each phase's main-path runs. The
+# counter is set to 0 just before such a run and read after it, so the
+# launches made only for checks (the me_kernel and integer phases, the
+# card-vs-CPU comparisons, the breakdown) count nowhere.
+ME_LAUNCHES: dict[str, int] = {}
+
+
+def _me_per_run(plan, frames: int) -> int:
+    """The motion search launches of one run of an HEVC ``plan`` over
+    ``frames`` source frames on one device: one a P step (the dispatch's
+    chains batched) and rung; the ladder runs no partitions."""
+    return len(plan.rungs) * sum(min(c, plan.gop_len) - 1
+                                 for c in _call_counts(plan, frames))
+
+
+def _me_reset() -> None:
+    from vlog_tpu_torch.ops import motion_search
+
+    motion_search.launches = 0
+
+
+def _me_check(phase: str, want: int | None) -> int:
+    """Fails unless the motion search launched ``want`` times since
+    :func:`_me_reset` (None: the caller checks the parts); adds the count
+    to ``ME_LAUNCHES[phase]``."""
+    from vlog_tpu_torch.ops import motion_search
+
+    got = motion_search.launches
+    if want is not None and got != want * motion_search.LAUNCHES_PER_CALL:
+        fail(f"{phase}: {got} HEVC motion search launches, expected "
+             f"{want * motion_search.LAUNCHES_PER_CALL}")
+    ME_LAUNCHES[phase] = ME_LAUNCHES.get(phase, 0) + got
+    return got
 
 
 def phase_slice(src: Path) -> int:
@@ -1004,10 +1184,12 @@ def phase_slice(src: Path) -> int:
                  if (r.height, r.width) != (SRC_H, SRC_W))
     thumb_launches = 3 * fused_resize.LAUNCHES_PER_CALL   # Y, U, V once
     fused_resize.launches = 0
+    _me_reset()
     t0 = time.perf_counter()
     res = backend.run(plan)
     wall = time.perf_counter() - t0
     launches = fused_resize.launches
+    _me_check("slice", 0)              # an H.264 run
     expected = scaled * 3 * fused_resize.LAUNCHES_PER_CALL * dispatches \
         + thumb_launches
     if launches != expected:
@@ -1264,7 +1446,8 @@ def phase_library(src: Path, work: Path) -> int:
         fail("library: the image's warm-up step did not finish")
     built = sorted(p.name for p in build.glob("*.so"))
     if warm.returncode != 0 or not {"libvt_native.so",
-                                    "libvt_fused_resize.so"} <= set(built):
+                                    "libvt_fused_resize.so",
+                                    "libvt_hevc_motion_search.so"} <= set(built):
         fail(f"library: the warm-up step exited {warm.returncode}, built "
              f"{built}: {w_err[-2000:]}")
     report["deploy_warm_up"] = {"s": round(time.perf_counter() - t_warm, 3),
@@ -1942,6 +2125,7 @@ def _hevc_tree_card_vs_cpu(work: Path) -> None:
     info = get_video_info(src)
     trees, secs = [], {}
     saved = fused_resize.launches
+    _me_reset()
     for i, dev in enumerate(("cuda", "cpu")):
         backend = TorchBackend(device=dev)
         out = work / f"hevc_tree_{i}"
@@ -1952,6 +2136,10 @@ def _hevc_tree_card_vs_cpu(work: Path) -> None:
         backend.run(plan)
         secs[dev] = round(time.perf_counter() - t0, 3)
         trees.append(_tree_files(out))
+        # the card's run searches on the card, the CPU's in plain PyTorch
+        _me_check("hevc", _me_per_run(plan, HEVC_TREE_FRAMES)
+                  if dev == "cuda" else 0)
+        _me_reset()
     if fused_resize.launches != saved:
         fail("hevc tree: the identity rung launched the resize kernel")
     card, cpu = trees
@@ -1996,8 +2184,7 @@ def _hevc_breakdown(src: Path) -> None:
         return refp, core._hfiltered_planes(refp, core._LTAPS)
 
     refp, hplanes = ref_planes()
-    mv_int, c_int = core._integer_search(cur, refp, search=search, pad=pad)
-    mv, _ = core._subpel_refine(cur, hplanes, mv_int, c_int, pad=pad)
+    mv, _ = core._p_ctb_search(cur, refp, hplanes, search=search, pad=pad)
     part = torch.zeros((1, rows, cols), dtype=torch.int32, device=dev)
 
     def residual():
@@ -2011,10 +2198,8 @@ def _hevc_breakdown(src: Path) -> None:
         "intra_deblock": lambda: dbk.deblock_picture(
             *raw, qp=qp, qpc=qpc, bs_v=ibv, bs_h=ibh, chroma=True),
         "p_ref_planes": ref_planes,
-        "p_integer_me": lambda: core._integer_search(cur, refp, search=search,
-                                                     pad=pad),
-        "p_subpel_refine": lambda: core._subpel_refine(cur, hplanes, mv_int,
-                                                       c_int, pad=pad),
+        "p_motion_search": lambda: core._p_ctb_search(cur, refp, hplanes,
+                                                      search=search, pad=pad),
         "p_mc_and_residual": residual,
         "p_deblock": lambda: core._deblock_p(p_out, qp, qpc),
     }
@@ -2065,12 +2250,14 @@ def phase_hevc(src: Path, work: Path) -> int:
     if backend.device.type != "cuda":
         fail(f"hevc: get_backend('torch') runs on {backend.device}")
     plan = backend.plan(get_video_info(src), out_dir=out, codec="h265")
-    dispatches = len(_frames_per_call(plan, "hevc", FRAMES))
+    counts = _frames_per_call(plan, "hevc", FRAMES)
+    dispatches = len(counts)
     scaled = sum(1 for r in plan.rungs if (r.height, r.width) != (SRC_H, SRC_W))
     log("hevc plan: " + ", ".join(f"{r.name} {r.width}x{r.height} qp{r.qp} "
                                   f"{r.codec}" for r in plan.rungs)
         + f"; gop {plan.gop_len}, frame_batch {plan.frame_batch}")
     fused_resize.launches = 0
+    _me_reset()
     t0 = time.perf_counter()
     res = process_video(src, out, backend=backend, codec="h265")
     wall = time.perf_counter() - t0
@@ -2078,8 +2265,10 @@ def phase_hevc(src: Path, work: Path) -> int:
     expected = (scaled * 3 * dispatches + 3) * fused_resize.LAUNCHES_PER_CALL
     if launches != expected:
         fail(f"hevc: kernel launches {launches}, expected {expected}")
+    me_launches = _me_check("hevc", _me_per_run(plan, FRAMES))
     log(f"hevc: {res.run.frames_processed} frames in {wall:.2f}s wall; stage_s "
-        + json.dumps(res.run.stage_s) + f"; kernel launches {launches}")
+        + json.dumps(res.run.stage_s) + f"; kernel launches {launches}; "
+        f"motion search launches {me_launches}")
     _check_stage_s("hevc", res.run.stage_s)
     _log_steps("hevc", res)
     _check_rungs(res.run, out, FRAMES)
@@ -2728,13 +2917,14 @@ def _runtime_profiler(backend, plan, work: Path) -> list[dict]:
 
 
 def _compile_warm() -> float:
-    """compile_seconds() of a fresh process that loads both libraries
-    from the warm build directory."""
+    """compile_seconds() of a fresh process that loads the native and
+    both kernel libraries from the warm build directory."""
     code = ("import sys; sys.path.insert(0, %r)\n"
             "from vlog_tpu_torch.native import build\n"
-            "from vlog_tpu_torch.ops import fused_resize\n"
+            "from vlog_tpu_torch.ops import fused_resize, motion_search\n"
             "from vlog_tpu_torch.parallel.compile_cache import compile_seconds\n"
-            "fused_resize.load_library(); build.get_lib()\n"
+            "fused_resize.load_library(); motion_search.load_library()\n"
+            "build.get_lib()\n"
             "print(compile_seconds())" % str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, check=True, timeout=120)
@@ -2763,9 +2953,12 @@ def phase_runtime(sources: dict, work: Path, compile_cold: float) -> int:
     per_call = _frames_per_call(hevc_plan(work / "rt_probe"), "runtime hevc",
                                 FRAMES)
     scaled = sum(1 for r in ladder if r.height != SRC_H)
+    _me_reset()
     _, hevc_rows = _runtime_depths(backend, hevc_plan, RUNTIME_HEVC_DEPTHS,
                                    "hevc", scaled * 3 * len(per_call), work)
     launches += scaled * 3 * len(per_call) * len(RUNTIME_HEVC_DEPTHS)
+    _me_check("runtime", len(RUNTIME_HEVC_DEPTHS)
+              * _me_per_run(hevc_plan(work / "rt_probe"), FRAMES))
     part_s["hevc_depths"] = clock() - t0
     # 2. H.264, the resume phase's 360p rung at constant QP: 2 dispatches
     t0 = clock()
@@ -2776,6 +2969,7 @@ def phase_runtime(sources: dict, work: Path, compile_cold: float) -> int:
         frame_batch=SHORT_BATCH, thumbnail=False)
     n_disp = len(_frames_per_call(h264_plan(work / "rt_probe"), "runtime h264",
                                   RESUME_FRAMES))
+    _me_reset()
     tree, h264_rows = _runtime_depths(backend, h264_plan, RUNTIME_H264_DEPTHS,
                                       "h264", 3 * n_disp, work)
     launches += 3 * n_disp * len(RUNTIME_H264_DEPTHS)
@@ -2787,14 +2981,19 @@ def phase_runtime(sources: dict, work: Path, compile_cold: float) -> int:
     t0 = clock()
     fp = _runtime_failpoint(backend, h264_plan, tree, work)
     launches += fp["launches_failed_run"] + fp["launches_resumed_run"]
+    _me_check("runtime", 0)            # parts 2 and 3 run H.264
     log("runtime failpoint: " + json.dumps(fp))
     part_s["failpoint"] = clock() - t0
     # 4. the scheduler on the card (an HEVC job and a transcription)
     t0 = clock()
     fused_resize.launches = 0
+    _me_reset()
     sched = _runtime_scheduler(sources[FRAMES], work)
     if fused_resize.launches != 12 * fused_resize.LAUNCHES_PER_CALL:
         fail(f"runtime scheduler: {fused_resize.launches} launches, want 12")
+    # the HEVC job runs on the lease's device, the card
+    _me_check("runtime", _me_per_run(backend.plan(
+        info, out_dir=work / "rt_probe", codec="h265"), FRAMES))
     launches += fused_resize.launches
     log("runtime scheduler: " + json.dumps(sched))
     part_s["scheduler"] = clock() - t0
@@ -2803,7 +3002,9 @@ def phase_runtime(sources: dict, work: Path, compile_cold: float) -> int:
     fused_resize.launches = 0
     plan6 = backend.plan(get_video_info(sources[TS_FRAMES]), ladder,
                          work / "rt_profiled", codec="h265", thumbnail=False)
+    _me_reset()
     prof = _runtime_profiler(backend, plan6, work)
+    _me_check("runtime", len(prof) * _me_per_run(plan6, TS_FRAMES))
     if fused_resize.launches != len(prof) * scaled * 3 \
             * fused_resize.LAUNCHES_PER_CALL:
         fail(f"runtime profiler: {fused_resize.launches} launches in "
@@ -2969,7 +3170,7 @@ def phase_daemon(work: Path, ip_path: Path, sources: dict) -> int:
     from vlog_tpu_torch.media.probe import get_video_info
     from vlog_tpu_torch.obs.profiler import profiler
     from vlog_tpu_torch.obs.trace import STAGE_KEYS
-    from vlog_tpu_torch.ops import fused_resize
+    from vlog_tpu_torch.ops import fused_resize, motion_search
     from vlog_tpu_torch.ops.fused_resize import resize_yuv420
     from vlog_tpu_torch.parallel import hevc_ladder
     from vlog_tpu_torch.parallel.scheduler import get_scheduler
@@ -2998,12 +3199,12 @@ def phase_daemon(work: Path, ip_path: Path, sources: dict) -> int:
     a_info, b_info = get_video_info(ip_path), get_video_info(sources[FRAMES])
     _frames_per_call(backend.plan(a_info, out_dir=d / "p"), "daemon transcode",
                      MP4_FRAMES)
-    _frames_per_call(backend.plan(b_info, out_dir=d / "p", codec="h265"),
-                     "daemon re-encode", FRAMES)
-    _frames_per_call(backend.plan(b_info, out_dir=d / "p", codec="h265",
-                                  segment_duration_s=SHORT_SEG_S,
-                                  frame_batch=SHORT_BATCH),
-                     "daemon 6-frame re-encode", FRAMES)
+    hevc_plans = (backend.plan(b_info, out_dir=d / "p", codec="h265"),
+                  backend.plan(b_info, out_dir=d / "p", codec="h265",
+                               segment_duration_s=SHORT_SEG_S,
+                               frame_batch=SHORT_BATCH))
+    _frames_per_call(hevc_plans[0], "daemon re-encode", FRAMES)
+    _frames_per_call(hevc_plans[1], "daemon 6-frame re-encode", FRAMES)
     saved = {k: getattr(config, k) for k in (
         "RETRY_BACKOFF_BASE_S", "DEVICE_PROBE_INTERVAL_S", "PROFILE_DIR",
         "SEGMENT_DURATION_S", "TPU_FRAME_BATCH", "transcode_timeout_s")}
@@ -3042,6 +3243,7 @@ def phase_daemon(work: Path, ip_path: Path, sources: dict) -> int:
             "event": event, "video_id": payload.get("video_id"),
             "kind": payload.get("kind"), "error": payload.get("error"),
             "launches": fused_resize.launches, "t": time.perf_counter(),
+            "me_launches": motion_search.launches,
             "allocated": torch.cuda.memory_allocated(),
             "executor_threads": [t.name for t in threading.enumerate()
                                  if t.name.startswith(("vlog-pipe",
@@ -3197,6 +3399,7 @@ def phase_daemon(work: Path, ip_path: Path, sources: dict) -> int:
         return vid, rows, verbs, t_queue
 
     t0 = time.perf_counter()
+    _me_reset()
     try:
         vid, rows, verbs, t_queue = asyncio.run(drive())
     finally:
@@ -3207,6 +3410,7 @@ def phase_daemon(work: Path, ip_path: Path, sources: dict) -> int:
         reset_engine()
     wall = time.perf_counter() - t0
     launches = fused_resize.launches
+    me_launches = _me_check("daemon", None)    # checked per job below
     # per job: enqueue-to-complete seconds and its steps' seconds
     for j in rows["jobs"]:
         spans = {s["name"]: round(s["duration_s"] or 0.0, 3)
@@ -3224,6 +3428,12 @@ def phase_daemon(work: Path, ip_path: Path, sources: dict) -> int:
         per_job.append((e["event"], e["video_id"], e["launches"] - prev))
         prev = e["launches"]
     log("daemon launches per job outcome: " + json.dumps(per_job))
+    prev, me_per_job = 0, []
+    for e in events:
+        me_per_job.append((e["event"], e["video_id"], e["me_launches"] - prev))
+        prev = e["me_launches"]
+    log("daemon motion search launches per job outcome: "
+        + json.dumps(me_per_job))
     log("daemon allocated bytes at each attempt's start, by video: "
         + json.dumps({str(k): v for k, v in allocated_at_start.items()}))
     if notes["hook_errors"]:
@@ -3345,10 +3555,24 @@ def phase_daemon(work: Path, ip_path: Path, sources: dict) -> int:
     if got != want or any(n for e, v, n in per_job
                           if e == "video.transcribed"):
         fail(f"daemon: launches per job {per_job}, want {want}")
+    # the HEVC searches: each re-encode's whole run (the cancelled job's
+    # retry runs all four of its dispatches), nothing in the others
+    lpc = motion_search.LAUNCHES_PER_CALL
+    me_want = dict.fromkeys(want, 0)
+    me_want[("video.reencoded", ids["hevc"])] = \
+        _me_per_run(hevc_plans[0], FRAMES) * lpc
+    me_want[("video.reencoded", ids["cancelled"])] = \
+        _me_per_run(hevc_plans[1], FRAMES) * lpc
+    me_got = {(e, v): n for e, v, n in me_per_job if (e, v) in me_want}
+    if me_got != me_want or any(n for e, v, n in me_per_job
+                                if e == "video.transcribed"):
+        fail(f"daemon: motion search launches per job {me_per_job}, want "
+             f"{me_want}")
     cli = _daemon_cli(d, sources[TS_FRAMES])
     log("daemon: " + json.dumps({
         "wall_s": round(wall, 2), "queue_s": round(t_queue, 2),
         "launches": launches, "launches_per_job": per_job,
+        "me_launches": me_launches, "me_launches_per_job": me_per_job,
         "quarantine": quarantine, "probes": probes,
         "allocated_at_attempt_start": {
             str(k): v for k, v in allocated_at_start.items()},
@@ -3433,8 +3657,8 @@ def phase_remote(work: Path, ip_path: Path, sources: dict) -> int:
     _frames_per_call(backend.plan(a_info, out_dir=d / "p"),
                      "remote transcode", MP4_FRAMES)
     b_info = get_video_info(sources[FRAMES])
-    _frames_per_call(backend.plan(b_info, out_dir=d / "p", codec="h265"),
-                     "remote re-encode", FRAMES)
+    hevc_plan = backend.plan(b_info, out_dir=d / "p", codec="h265")
+    _frames_per_call(hevc_plan, "remote re-encode", FRAMES)
     for n in (RESUME_FRAMES, FRAMES):
         _frames_per_call(backend.plan(get_video_info(sources[n]), one_rung,
                                       out_dir=d / "p",
@@ -3689,6 +3913,7 @@ def phase_remote(work: Path, ip_path: Path, sources: dict) -> int:
 
     t0 = time.perf_counter()
     launches0 = fused_resize.launches
+    _me_reset()
     try:
         vid, rows, partial, cut_job, lost_job = asyncio.run(drive())
     finally:
@@ -3697,6 +3922,8 @@ def phase_remote(work: Path, ip_path: Path, sources: dict) -> int:
         reset_engine()
     wall = time.perf_counter() - t0
     launches = fused_resize.launches - launches0
+    # the HEVC re-encode's searches; the other jobs run H.264
+    me_launches = _me_check("remote", _me_per_run(hevc_plan, FRAMES))
     if stats["hook_errors"]:
         fail(f"remote: hooks failed {stats['hook_errors']}")
     ids = {k: v["id"] for k, v in vid.items()}
@@ -3788,7 +4015,7 @@ def phase_remote(work: Path, ip_path: Path, sources: dict) -> int:
         "allocated_at_attempt_start": {
             str(k): v for k, v in stats["allocated_at_start"].items()},
         "launches_by_job": {str(k): v for k, v in stats["launches"].items()},
-        "launches": launches,
+        "launches": launches, "me_launches": me_launches,
         "preempt": {"at_frames": stats["preempted_at"],
                     "partial_files": len(partial),
                     "resumed_segments": resumed,
@@ -4192,6 +4419,7 @@ def phase_admin(work: Path, sources: dict) -> int:
     from vlog_tpu_torch.codecs.jpeg.encoder import pack_jpeg
     from vlog_tpu_torch.db import Database, create_all
     from vlog_tpu_torch.enums import JobKind
+    from vlog_tpu_torch.media.probe import get_video_info
     from vlog_tpu_torch.ops import fused_resize
     from vlog_tpu_torch.ops.resize import apply_resize_matrices
     from vlog_tpu_torch.parallel.scheduler import get_scheduler
@@ -4407,6 +4635,7 @@ def phase_admin(work: Path, sources: dict) -> int:
         reencodes = {}
         for codec, tag in (("h265", b"hvc1"), ("av1", b"av01")):
             launches0 = fused_resize.launches
+            _me_reset()
             t0 = time.perf_counter()
             st, body, _ = call(request(
                 "POST", f"/api/videos/{video['id']}/reencode",
@@ -4418,7 +4647,12 @@ def phase_admin(work: Path, sources: dict) -> int:
                 job_id, lambda r, f: r["completed_at"] or f),
                 ADMIN_JOB_TIMEOUT_S + 10)
             n = fused_resize.launches - launches0
-            rec = {"s": round(time.perf_counter() - t0, 3), "launches": n}
+            # the HEVC run's searches, on the ladder cut to 360p
+            rec = {"s": round(time.perf_counter() - t0, 3), "launches": n,
+                   "me_launches": _me_check("admin", _me_per_run(
+                       backend.plan(get_video_info(src), one_rung,
+                                    out_dir=d / "p", codec="h265"),
+                       SLICE_FRAMES) if codec == "h265" else 0)}
             if codec == "av1" and not av1_ok:
                 errors = [f["error"] for f in ended["failures"]]
                 if ended["row"]["completed_at"] or not errors \
@@ -4639,10 +4873,12 @@ def phase_grid(work: Path, sources: dict) -> int:
         rungs_spec = tuple((r.name, r.height, r.width, r.qp)
                            for r in plan.rungs)
         fused_resize.launches = 0
+        _me_reset()
         t0 = time.perf_counter()
         res, shape = _under_lease(devices, GRID_H264_SPEC, backend.run, plan)
         wall = time.perf_counter() - t0
         launches = fused_resize.launches
+        _me_check("grid", 0)
         want = _grid_launches(rungs_spec, shape) + 3 * fused_resize.LAUNCHES_PER_CALL
         if shape != "1x4" or launches != want:
             fail(f"grid h264: shape {shape}, {launches} launches; want 1x4, "
@@ -4669,12 +4905,17 @@ def phase_grid(work: Path, sources: dict) -> int:
         for spec in GRID_HEVC_SPECS:
             out = work / f"grid_hevc_{spec.replace(':', '').replace(',', '_')}"
             fused_resize.launches = 0
+            _me_reset()
             t0 = time.perf_counter()
             res, shape = _under_lease(devices, spec, process_video, hsrc, out,
                                       backend=get_backend("torch"),
                                       codec="h265")
             wall = time.perf_counter() - t0
             launches = fused_resize.launches
+            # every data device searches its shard of the chains for each
+            # rung of its column: data x rungs launches a P step
+            me_launches = _me_check("grid", int(shape.split("x")[0])
+                                    * _me_per_run(hplan, FRAMES))
             want = _grid_launches(rungs_spec, shape) \
                 + 3 * fused_resize.LAUNCHES_PER_CALL
             if launches != want:
@@ -4684,7 +4925,8 @@ def phase_grid(work: Path, sources: dict) -> int:
                 fail(f"grid hevc {shape}: the tree differs from the hevc "
                      f"phase's: {diff}")
             report["hevc"][shape] = {
-                "launches": launches, "wall_s": round(wall, 3),
+                "launches": launches, "me_launches": me_launches,
+                "wall_s": round(wall, 3),
                 "run_wall_s": round(res.run.wall_s, 3),
                 "compute_wait_s": res.run.stage_s.get("compute_wait_s"),
                 "pad_frames": res.run.stage_s.get("pad_frames"),
@@ -4774,8 +5016,17 @@ def main() -> int:
     # one profiler-backed timer for the process (the kernel and aac phases)
     timer = DeviceTimer(torch.device("cuda"))
     kern = timed("kernel", phase_kernel, timer, FRAMES)
+    me = timed("me_kernel", phase_me_kernel, timer)
     timed("integer", phase_integer)
     timed("aac", phase_aac, timer)      # fails on any resize launch
+
+    def no_hevc(name, fn, *args):
+        """A phase that runs no HEVC: no motion search launch in it."""
+        _me_reset()
+        value = timed(name, fn, *args)
+        _me_check(name, 0)
+        return value
+
     launches = {"aac": 0}
     work = ROOT / "vlog_tpu_torch" / "_build" / "smoke"
     shutil.rmtree(work, ignore_errors=True)
@@ -4784,15 +5035,18 @@ def main() -> int:
                     (FRAMES, SLICE_FRAMES, INTRA_FRAMES, RESUME_FRAMES,
                      TS_FRAMES), 11)
     launches["slice"] = timed("slice", phase_slice, sources[SLICE_FRAMES])
-    launches["intra"] = timed("intra", phase_intra, sources[INTRA_FRAMES])
-    launches["library"] = timed("library", phase_library, sources[FRAMES],
-                                work)
-    launches["pipeline"], ip_path, seq = timed("pipeline", phase_pipeline,
-                                               work)
-    launches["pipeline_ts"] = timed("pipeline_ts", phase_pipeline_ts, ip_path)
-    launches["sprites"] = timed("sprites", phase_sprites, work, ip_path, seq)
-    launches["resume"] = timed("resume", phase_resume, sources[RESUME_FRAMES])
-    launches["ts"] = timed("ts", phase_ts, sources[TS_FRAMES])
+    launches["intra"] = no_hevc("intra", phase_intra, sources[INTRA_FRAMES])
+    launches["library"] = no_hevc("library", phase_library, sources[FRAMES],
+                                  work)
+    launches["pipeline"], ip_path, seq = no_hevc("pipeline", phase_pipeline,
+                                                 work)
+    launches["pipeline_ts"] = no_hevc("pipeline_ts", phase_pipeline_ts,
+                                      ip_path)
+    launches["sprites"] = no_hevc("sprites", phase_sprites, work, ip_path,
+                                  seq)
+    launches["resume"] = no_hevc("resume", phase_resume,
+                                 sources[RESUME_FRAMES])
+    launches["ts"] = no_hevc("ts", phase_ts, sources[TS_FRAMES])
     launches["hevc"] = timed("hevc", phase_hevc, sources[FRAMES], work)
     witness = witness_start()
     launches["runtime"] = timed("runtime", phase_runtime, sources, work,
@@ -4800,15 +5054,17 @@ def main() -> int:
     launches["daemon"] = timed("daemon", phase_daemon, work, ip_path, sources)
     witness_end(witness, phase_s)
     launches["remote"] = timed("remote", phase_remote, work, ip_path, sources)
-    launches["serve"] = timed("serve", phase_serve, work, sources)
+    launches["serve"] = no_hevc("serve", phase_serve, work, sources)
     launches["admin"] = timed("admin", phase_admin, work, sources)
-    timed("asr", phase_asr, work)       # fails on any resize launch
+    no_hevc("asr", phase_asr, work)     # fails on any resize launch
     launches["asr"] = 0
     launches["grid"] = timed("grid", phase_grid, work, sources)
     shutil.rmtree(work, ignore_errors=True)
     timed("breakdown", phase_breakdown)
+
     _witness_reports(witness["stats"]["reports"])
     log("launches by phase " + json.dumps(launches))
+    log("motion search launches by phase " + json.dumps(ME_LAUNCHES))
     log("phase seconds " + json.dumps(phase_s))
     log(f"phase seconds sum {sum(phase_s.values()):.2f}")
 
@@ -4821,7 +5077,16 @@ def main() -> int:
         "ms": kern["ms"], "call_ms": kern["call_ms"],
         "plain_ms": kern["plain_ms"],
         "bound_ms": kern["bound_ms"], "bound_by": kern["bound_by"],
-        "library_ms": kern["library_ms"]}]}))
+        "library_ms": kern["library_ms"]}, {
+        "name": "hevc_motion_search", "route": "cuda",
+        "source": "vlog_tpu_torch/csrc/hevc_motion_search.cu",
+        "replaces": "none (vlog_tpu/codecs/hevc/jax_core.py::_p_ctb_search "
+                    "is plain jnp)",
+        "launches": sum(ME_LAUNCHES.values()),
+        "launches_by_phase": ME_LAUNCHES,
+        "ms_per_dispatch": me["ms"], "call_ms_per_dispatch": me["call_ms"],
+        "plain_ms_per_dispatch": me["plain_ms"],
+        "bound_ms_per_dispatch": me["bound_ms"]}]}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -7,7 +7,10 @@ on the card, and the device runtime: the executor's event/stream copies
 against ``.cpu()``, a pull that does not wait for a later batch's
 kernels, and the scheduler's CUDA probe; the worker daemon and the
 remote worker (over the port's Worker API) on the card; the one-call
-resize API (``ops.ladder_resize_yuv420``) through the kernel.
+resize API (``ops.ladder_resize_yuv420``) through the kernel; the HEVC
+motion search kernel against the plain search stages (MVs and costs bit
+for bit), the chain DSP through it on CUDA against the CPU, and its
+launch count.
 
 Marked ``cuda``; each test skips (in its fixture) without a CUDA
 device. On a machine with a card and without JAX, run them alone:
@@ -1056,3 +1059,128 @@ def test_engine_tick_wall_on_the_card(cuda, whisper_dir):  # slowlane-ok: tiny c
     assert 1 <= tick["steps"] <= 16
     if HAVE_PROMETHEUS:
         assert device_seconds() == pytest.approx(before + tick["wall_s"])
+
+
+# ---------------------------------------------------------------- HEVC ME
+# The motion search kernel (ops/motion_search.py) against the plain
+# stages of codecs/hevc/core.py on the same card: MVs and costs bit for
+# bit. Grids of n-blocks are non-square, chains run 1-6.
+_ME_GRID = {16: (5, 7), 32: (3, 5)}
+_ME_CASES = [(n, s) for n in (16, 32) for s in (1, 4, 8, 16, 32)]
+
+
+def _me_inputs(kind, n, search, chains, dev, seed):
+    import chip_smoke
+
+    rows, cols = _ME_GRID[n]
+    h, w = rows * n, cols * n
+    rng = np.random.default_rng(seed)
+    if kind == "random":
+        frames = rng.integers(0, 256, (chains + 1, h, w), dtype=np.uint8)
+        ref, cur = frames[:-1], frames[1:]
+    elif kind == "smooth":
+        frames = chip_smoke._smooth_frames(chains + 1, h, w, seed)[0]
+        ref, cur = frames[:-1], frames[1:]
+    elif kind == "flat":            # every offset ties
+        ref = np.full((chains, h, w), 77, np.uint8)
+        cur = np.full((chains, h, w), 90, np.uint8)
+    else:                           # "edge": the true MV is (search, -search)
+        m = 2 * search
+        world = rng.integers(0, 256, (chains, h + 2 * m, w + 2 * m),
+                             dtype=np.uint8)
+        ref = world[:, m:m + h, m:m + w]
+        cur = world[:, m + search:m + search + h, m - search:m - search + w]
+    return chip_smoke._me_planes(ref, cur, search, dev)
+
+
+@pytest.mark.parametrize("kind", ["random", "smooth", "flat", "edge"])
+@pytest.mark.parametrize("n,search", _ME_CASES)
+def test_motion_search_kernel_matches_plain(cuda, kind, n, search):
+    from vlog_tpu_torch.codecs.hevc import core
+    from vlog_tpu_torch.ops import motion_search
+
+    chains = 1 + _ME_CASES.index((n, search)) % 6
+    cur, refp, hplanes, pad = _me_inputs(kind, n, search, chains, cuda,
+                                         seed=n * 100 + search)
+    before = motion_search.launches
+    mv, cost = core._p_ctb_search(cur, refp, hplanes, search=search, pad=pad,
+                                  n=n)
+    assert motion_search.launches == before + 1
+    mv_int, c_int = core._integer_search(cur, refp, search=search, pad=pad,
+                                         n=n)
+    want_mv, want_cost = core._subpel_refine(cur, hplanes, mv_int, c_int,
+                                             pad=pad, n=n)
+    torch.cuda.synchronize()
+    assert mv.shape == want_mv.shape and mv.dtype == torch.int32
+    np.testing.assert_array_equal(mv.cpu().numpy(), want_mv.cpu().numpy())
+    np.testing.assert_array_equal(cost.cpu().numpy(), want_cost.cpu().numpy())
+    if kind == "flat":
+        assert not mv.any()
+    if kind == "edge":              # interior blocks find the window's edge
+        hit = (mv.cpu().numpy() == [4 * search, -4 * search]).all(-1)
+        assert hit.any()
+
+
+def test_motion_search_kernel_refuses_bad_inputs_on_the_card(cuda):
+    from vlog_tpu_torch.ops import motion_search
+
+    cur, refp, hplanes, pad = _me_inputs("random", 32, 4, 1, cuda, seed=1)
+    with pytest.raises(ValueError, match="one device"):
+        motion_search.p_ctb_search(cur, refp.cpu(), hplanes, search=4, pad=pad)
+    with pytest.raises(ValueError, match="search"):
+        motion_search.p_ctb_search(cur, refp, hplanes, search=33, pad=pad)
+
+
+@pytest.mark.parametrize("partitions", [False, True])
+def test_hevc_chain_dsp_cpu_and_cuda_identical(cuda, partitions):  # slowlane-ok: 96x128, 2 chains of 4 frames
+    """``encode_chain_dsp`` with deblock and the rate cascade: every
+    integer output identical on CPU (the plain search) and CUDA (the
+    kernel: one launch per P frame, two with partitions)."""
+    import chip_smoke
+    from vlog_tpu_torch.codecs.hevc.core import encode_chain_dsp
+    from vlog_tpu_torch.ops import motion_search
+
+    y, u, v = (p.reshape((2, 4) + p.shape[1:])
+               for p in chip_smoke._smooth_frames(8, 96, 128, seed=6))
+    rc = {"budget": np.float32(200.0), "alpha": np.float32(0.4)}
+    got = {}
+    for dev in ("cpu", cuda):
+        planes = [torch.as_tensor(p, device=dev) for p in (y, u, v)]
+        q = torch.as_tensor([[28, 30, 31, 32], [33, 34, 35, 36]],
+                            dtype=torch.int32, device=dev)
+        before = motion_search.launches
+        res = encode_chain_dsp(*planes, 8, q[:, 0], q[:, 1:], partitions,
+                               True, rc)
+        launched = motion_search.launches - before
+        assert launched == (0 if dev == "cpu" else 3 * (2 if partitions else 1))
+        (intra, rec_i), (p32, p16, parts, mvs, precons), out = res
+        arrays = [*intra, *rec_i, *p32, parts, mvs, *precons, out["qp_eff"]]
+        if partitions:
+            arrays += list(p16)
+        got[str(dev)] = [a.cpu().numpy() for a in arrays]
+    for a, b in zip(got["cpu"], got["cuda"]):
+        np.testing.assert_array_equal(a, b)
+    assert np.abs(got["cuda"][10]).max() > 0          # the MVs moved
+
+
+def test_motion_search_launches_once_per_p_step_and_rung(cuda):  # slowlane-ok: 4 small rungs, one 144-frame dispatch
+    """A 144-frame dispatch (6 chains of 24) over 4 rungs with partitions
+    off launches the kernel 23 P steps x 4 rungs = 92 times."""
+    from vlog_tpu_torch.ops import motion_search
+    from vlog_tpu_torch.parallel.hevc_ladder import hevc_chain_ladder_program
+
+    rng = np.random.default_rng(9)
+    y = torch.as_tensor(rng.integers(0, 256, (6, 24, 128, 256), dtype=np.uint8),
+                        device=cuda)
+    u = torch.as_tensor(rng.integers(0, 256, (6, 24, 64, 128), dtype=np.uint8),
+                        device=cuda)
+    rungs = (("128p", 128, 256, 30), ("96p", 96, 192, 31),
+             ("64p", 64, 128, 32), ("32p", 32, 64, 33))
+    qps = {r[0]: np.full((6, 24), r[3], np.int32) for r in rungs}
+    fn, mats = hevc_chain_ladder_program(rungs, 128, 256, search=8,
+                                         deblock=True, device=cuda)
+    before = motion_search.launches
+    out = fn(y, u, u, mats, qps)
+    torch.cuda.synchronize()
+    assert motion_search.launches - before == 92
+    assert all(out[r[0]]["mv"].shape[:2] == (6, 23) for r in rungs)

@@ -9,7 +9,7 @@ it); ``python -m vlog_tpu_torch.analysis`` is the CLI. Pass registry:
 - ``tracehop``        thread hand-offs in traced modules carry context
 - ``registry``        knob/metric/failpoint/span registries vs docs
 - ``meshshim``        device probes go through device.py / parallel/mesh
-- ``pallasshim``      CUDA kernel code stays in ops/fused_resize
+- ``pallasshim``      CUDA kernel code stays in the ops/ kernel modules
 - ``lockorder``       lock-order ranks: no rank inversions or cycles
 - ``holdblock``       no blocking calls while an annotated lock is held
 - ``slowlane``        compile-path tests carry the ``slow`` marker

@@ -1,20 +1,22 @@
-"""pallasshim: CUDA kernel code stays inside ops/fused_resize.py.
+"""pallasshim: CUDA kernel code stays inside the port's kernel modules.
 
 The port's counterpart of the JAX package's Pallas rule, aimed at the
-port's own kernel surface. ``ops/fused_resize.py`` is the tree's single
-CUDA kernel module: it owns the ``nvcc`` build of ``csrc/``, the ctypes
-load, the launch counter, and the guarded wrapper that launches the
-hand-written kernel on a CUDA tensor and takes the plain PyTorch version
-on a CPU tensor, with no fallback from one to the other. Program
-builders call :func:`~vlog_tpu_torch.ops.fused_resize.fused_resize_plane`
-(or the resize helpers over it); they never see the kernel. A second
-route to the card — a library's kernel built on the fly, a compiled graph
-of the plain version, another loader of ``csrc/`` — would run kernel
-code past those guards: it is not counted, not held to the plain
-version, and silently forks the port's rule that every kernel is the
-hand-written one behind one guarded wrapper.
+port's own kernel surface. The kernel modules are ``ops/cuda_build.py``
+(the one ``nvcc`` build of ``csrc/``) and one guarded wrapper a kernel:
+``ops/fused_resize.py`` and ``ops/motion_search.py``. Each wrapper owns
+its ctypes load and launch counter, and launches its hand-written kernel
+on a CUDA tensor while the plain PyTorch version serves a CPU tensor,
+with no fallback from one to the other. Program builders call
+:func:`~vlog_tpu_torch.ops.fused_resize.fused_resize_plane` (or the
+resize helpers over it) and reach the motion search through
+``codecs/hevc/core.py``; they never see a kernel. A second route to the
+card — a library's kernel built on the fly, a compiled graph of the
+plain version, another loader of ``csrc/`` — would run kernel code past
+those guards: it is not counted, not held to the plain version, and
+silently forks the port's rule that every kernel is a hand-written one
+behind one guarded wrapper.
 
-Rule: outside ``ops/fused_resize.py``, no module may
+Rule: outside the kernel modules, no module may
 
 - import ``torch.utils.cpp_extension`` in any spelling
   (``import torch.utils.cpp_extension``, ``from torch.utils import
@@ -44,17 +46,21 @@ from vlog_tpu_torch.analysis.core import Finding, Module, dotted_name
 
 RULE = "pallasshim"
 
-_SHIM = "ops/fused_resize.py (the only sanctioned CUDA kernel surface)"
+_KERNEL_MODULES = ("cuda_build.py", "fused_resize.py", "motion_search.py")
+_SHIM = ("ops/fused_resize.py, ops/motion_search.py or ops/cuda_build.py "
+         "(the only sanctioned CUDA kernel surface)")
 _CPP_EXT = "torch.utils.cpp_extension"
 _KERNEL_LITERAL = re.compile(
     r"(^|[/\\])csrc([/\\]|$)|\.cuh?$|(^|[/\\])nvcc$")
 
 
 def _exempt(mod: Module) -> bool:
-    # The kernel module itself, and the analysis package (this file
+    # The kernel modules themselves, and the analysis package (this file
     # quotes the banned spellings in docstrings/tests).
-    return (mod.pkg_parts == ("ops", "fused_resize.py")
-            or mod.pkg_parts[0] == "analysis")
+    parts = mod.pkg_parts
+    return ((len(parts) == 2 and parts[0] == "ops"
+             and parts[1] in _KERNEL_MODULES)
+            or parts[0] == "analysis")
 
 
 def _is_module(name: str | None, root: str) -> bool:

@@ -21,7 +21,8 @@ shifts and table lookups broadcast per row.
   in the reference's order ((0, 0) first, then raster), the first
   minimum winning; then half- and quarter-pel refinement over the 8
   neighbours in order, a candidate replacing the best only when strictly
-  better.
+  better. On a CUDA tensor it is one launch of the hand-written kernel
+  (ops/motion_search.py); the plain functions here serve the CPU.
 - **MC.** Luma is the spec's two-stage 8-tap (table 8-11), chroma the
   4-tap eighth-pel filter (table 8-32): the horizontal pass makes one
   un-normalised plane per fraction (``torch.roll``, wrapping as
@@ -31,9 +32,10 @@ shifts and table lookups broadcast per row.
 
 Stage spans (``obs/trace.py::stage``, recorded only under a profiler
 session on the calling thread): ``hevc.intra``; per P frame
-``hevc.p_frame`` with ``hevc.me.integer``, ``hevc.me.subpel``,
-``hevc.residual`` and ``hevc.deblock`` under it; ``hevc.rc`` for the
-in-chain rate cascade.
+``hevc.p_frame`` with ``hevc.me`` (the kernel, on CUDA) or
+``hevc.me.integer`` and ``hevc.me.subpel`` (the plain stages, on the
+CPU), ``hevc.residual`` and ``hevc.deblock`` under it; ``hevc.rc`` for
+the in-chain rate cascade.
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ from vlog_tpu_torch.codecs.hevc import deblock as dbk
 from vlog_tpu_torch.codecs.hevc.transform import (LEVEL_SCALE, QUANT_SCALE,
                                                   T8, T16, T32, _QPC)
 from vlog_tpu_torch.obs.trace import stage
+from vlog_tpu_torch.ops import motion_search
 from vlog_tpu_torch.ops.bitproxy import cost_proxy
 
 I32 = torch.int32
@@ -353,7 +356,14 @@ def _subpel_refine(cur, hplanes, mv_int, int_cost, *, pad, lam=2, n=32):
 
 def _p_ctb_search(cur, refp, hplanes, *, search, pad, lam=2, n=32):
     """Integer ME per nxn block, then sub-pel refinement: (B, H, W) ->
-    ((B, H/n, W/n, 2) MVs in quarter pels, their costs)."""
+    ((B, H/n, W/n, 2) MVs in quarter pels, their costs). A CPU tensor
+    takes the two plain stages; any other launches the hand-written
+    kernel (ops/motion_search.py, bit-exact with them) or raises."""
+    if cur.device.type != "cpu":
+        with stage("hevc.me"):
+            return motion_search.p_ctb_search(cur, refp, hplanes,
+                                              search=search, pad=pad,
+                                              lam=lam, n=n)
     with stage("hevc.me.integer"):
         mv, cost = _integer_search(cur, refp, search=search, pad=pad,
                                    lam=lam, n=n)

@@ -4,6 +4,9 @@
 - ``resize``       separable resampling matrices, the one-call resize API
                    and the plain version of the fused kernel
 - ``fused_resize`` the hand-written CUDA ladder resize (csrc/fused_resize.cu)
+- ``motion_search`` the hand-written CUDA HEVC motion search
+                   (csrc/hevc_motion_search.cu)
+- ``cuda_build``   the nvcc build of both kernels
 - ``transform``    H.264 4x4 integer transforms and quantization (exact)
 - ``bitproxy``     the rate controller's bit-cost proxy
 """

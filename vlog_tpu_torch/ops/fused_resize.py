@@ -1,12 +1,11 @@
 """Python side of the fused ladder resize kernel (csrc/fused_resize.cu).
 
 Replaces ``vlog_tpu/ops/pallas_ladder.py::fused_resize_plane``. The CUDA
-source is compiled with ``nvcc`` for ``sm_90a`` at first use into the
-build directory (parallel/compile_cache.py: the package's ignored
-``_build/`` unless ``VLOG_COMPILE_CACHE_DIR`` is set) as a plain-C shared
-library and loaded with ctypes. A CUDA tensor launches the kernel or raises; a CPU
-tensor takes the plain PyTorch version (ops/resize.py
-``apply_resize_matrices``). There is no fallback from one to the other.
+source is compiled with ``nvcc`` for ``sm_90a`` at first use
+(ops/cuda_build.py) as a plain-C shared library and loaded with ctypes.
+A CUDA tensor launches the kernel or raises; a CPU tensor takes the
+plain PyTorch version (ops/resize.py ``apply_resize_matrices``). There
+is no fallback from one to the other.
 
 The kernel walks each matrix in its band form (ops/resize.py
 ``band_form``, rows in groups of ``GROUP``) plus the source window of
@@ -25,11 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import os
-import shutil
-import subprocess
 import threading
-import time
 import weakref
 from dataclasses import dataclass
 from pathlib import Path
@@ -37,17 +32,9 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from vlog_tpu_torch.ops import cuda_build
 from vlog_tpu_torch.ops.resize import (apply_resize_matrices, band_form,
                                        resize_yuv420_with)
-from vlog_tpu_torch.parallel.compile_cache import (ensure_compile_cache,
-                                                   note_build)
-
-_PKG = Path(__file__).resolve().parent.parent
-_SOURCE = _PKG / "csrc" / "fused_resize.cu"
-_LIB_NAME = "libvt_fused_resize.so"
-_NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas", "-v"]
 
 # The kernel's layout (csrc/fused_resize.cu, checked against the built
 # library when it loads): band groups of GROUP rows, output tiles of
@@ -66,36 +53,14 @@ _COUNT_LOCK = threading.Lock()   # launches: the dispatch and host threads launc
 _LIB = None
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found: the fused resize kernel cannot be "
-                       "built on this machine")
-
-
 def build_library() -> Path:
     """Compile csrc/fused_resize.cu into the build directory
-    (parallel/compile_cache.py; raises on failure)."""
+    (ops/cuda_build.py; raises on failure)."""
     global build_log, build_seconds
-    build = Path(ensure_compile_cache())
-    so = build / _LIB_NAME
-    if so.exists() and so.stat().st_mtime >= _SOURCE.stat().st_mtime:
-        return so
-    tmp = build / f"{_LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *_NVCC_FLAGS, "-o", str(tmp), str(_SOURCE)]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    build_seconds = time.perf_counter() - t0
-    note_build(build_seconds)
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log[-4000:]}")
-    os.replace(tmp, so)
-    return so
+    built = cuda_build.build("fused_resize.cu", "libvt_fused_resize.so")
+    if built.log:
+        build_log, build_seconds = built.log, built.seconds
+    return built.path
 
 
 def load_library():
