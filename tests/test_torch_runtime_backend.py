@@ -107,10 +107,8 @@ def _depth_sweep(src, tmp_path, depth_of, n_frames, **opts):
         tres = _torch_run(src, tmp_path / f"torch{depth}", **opts)
         assert tres.frames_processed == jres.frames_processed == n_frames
         assert_same_files(tmp_path / f"jax{depth}", tmp_path / f"torch{depth}")
-        # the reference's keys; the HEVC path adds its device-clock
-        # dispatch sums
-        extra = ({"enqueue_s", "dispatch_wall_s"}
-                 if opts.get("codec") == "h265" else set())
+        # the reference's keys and the port's device-clock dispatch sums
+        extra = {"enqueue_s", "dispatch_wall_s"}
         assert set(tres.stage_s) == set(jres.stage_s) | extra
         assert tres.stage_s["pipeline_depth"] == depth
         assert 1 <= tres.stage_s["max_in_flight"] <= depth

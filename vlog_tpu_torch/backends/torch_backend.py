@@ -39,7 +39,10 @@ whose data width divides the batch writes the same tree.
 ``RunResult.stage_s`` has the reference's keys: the busy seconds of
 ``decode_wait_s``, ``compute_wait_s``, ``device_pull_s``, ``entropy_s``
 and ``package_s``, ``pad_frames``, ``rung_<name>_s`` per rung, and the
-executor's gauges.
+executor's gauges; and the port's ``enqueue_s`` and ``dispatch_wall_s``.
+Each dispatch leaves a record in ``RunResult.dispatches`` (the
+executor's ``timed_dispatch``), as on the HEVC path, and the dispatch
+thread's steps are ``stage`` spans (README's port section).
 A CMAF run resumes from the segments on disk
 (``run(..., resume=True)``, the default): the resume point is clamped to
 a batch boundary the journal can replay, so the resumed tree equals the
@@ -93,7 +96,7 @@ from vlog_tpu_torch.media.ts import TsMuxer, TsSample
 from vlog_tpu_torch.media.y4m import fps_to_fraction
 from vlog_tpu_torch.ops.colorspace import yuv420_to_rgb
 from vlog_tpu_torch.ops.fused_resize import resize_yuv420
-from vlog_tpu_torch.obs.trace import STAGE_KEYS
+from vlog_tpu_torch.obs.trace import STAGE_KEYS, stage
 from vlog_tpu_torch.parallel.compile_cache import ensure_compile_cache
 from vlog_tpu_torch.parallel.executor import (DecodePrefetch,
                                               LaggedRateControl,
@@ -486,7 +489,8 @@ class TorchBackend:
                 with dispatch_streams(prog.devices):
                     while True:
                         td = time.perf_counter()
-                        item = prefetch.get()
+                        with stage("executor.decode_wait"):
+                            item = prefetch.get()
                         prof["decode_wait_s"] += time.perf_counter() - td
                         if item is None:
                             break
@@ -509,35 +513,44 @@ class TorchBackend:
                         n_disp = int(np.prod(lead))
                         # backpressure before planning: batches <= N-depth
                         # are consumed, so every depth plans the same QPs
-                        pipe.reserve()
-                        rc.apply_upto(batch_idx - pipe.depth)
-                        pipe.note_pad_waste(n_real, n_disp)
-                        # tail: replicate the last frame, dropped after
-                        # encode
-                        planes = [(np.concatenate(
-                            [p, np.repeat(p[-1:], n_disp - n_real, 0)])
-                            if n_disp > n_real else p)
-                            .reshape(lead + p.shape[1:]) for p in item]
-                        qps = {}
-                        for r in plan.rungs:
-                            q = controllers[r.name].frame_qps(batch_n)
-                            if chain_mode:
-                                # the I frames take the -2 QP anchor
-                                q = q.reshape(chains_per, clen)
-                                q[:, 0] = np.maximum(q[:, 0] - 2, 0)
-                                q = np.ascontiguousarray(q[:lead[0], :lead[1]])
-                            qps[r.name] = q
+                        with stage("executor.reserve"):
+                            pipe.reserve()
+                        with stage("executor.plan"):
+                            rc.apply_upto(batch_idx - pipe.depth)
+                            pipe.note_pad_waste(n_real, n_disp)
+                            # tail: replicate the last frame, dropped after
+                            # encode
+                            planes = [(np.concatenate(
+                                [p, np.repeat(p[-1:], n_disp - n_real, 0)])
+                                if n_disp > n_real else p)
+                                .reshape(lead + p.shape[1:]) for p in item]
+                            qps = {}
+                            for r in plan.rungs:
+                                q = controllers[r.name].frame_qps(batch_n)
+                                if chain_mode:
+                                    # the I frames take the -2 QP anchor
+                                    q = q.reshape(chains_per, clen)
+                                    q[:, 0] = np.maximum(q[:, 0] - 2, 0)
+                                    q = np.ascontiguousarray(
+                                        q[:lead[0], :lead[1]])
+                                qps[r.name] = q
+                            rc_params = {
+                                r.name: controllers[r.name].device_rc_params()
+                                for r in plan.rungs} if chain_mode else None
                         # each column stages the batch on its devices and
                         # leaves its rungs' outputs there
-                        if chain_mode:
-                            outs = prog.dispatch(*planes, qps, {
-                                r.name: controllers[r.name].device_rc_params()
-                                for r in plan.rungs})
-                        else:
-                            outs = prog.dispatch(*planes, qps)
-                        pipe.submit({r.name: {k: outs[r.name][k]
-                                              for k in keys}
-                                     for r in plan.rungs}, n_real, qps)
+                        with stage("executor.dispatch"), \
+                                pipe.timed_dispatch(n_disp,
+                                                    prog.devices) as rec:
+                            if chain_mode:
+                                outs = prog.dispatch(*planes, qps, rc_params)
+                            else:
+                                outs = prog.dispatch(*planes, qps)
+                        with stage("executor.submit"):
+                            pipe.submit({r.name: {k: outs[r.name][k]
+                                                  for k in keys}
+                                         for r in plan.rungs}, n_real, qps,
+                                        record=rec)
                         del outs, planes
                         batch_idx += 1
                         if rc.hunting():
@@ -573,7 +586,8 @@ class TorchBackend:
             segment_duration_s=plan.segment_duration_s,
             stage_s={k: round(v, 3) for k, v in prof.items()}
             | pipe.gauges(),
-            gop_len=clen, resumed_segments=start_segment * len(plan.rungs))
+            gop_len=clen, resumed_segments=start_segment * len(plan.rungs),
+            dispatches=pipe.dispatches)
 
     @staticmethod
     def _publish(plan, encoders, seg_durs, bytes_written, psnr_acc,

@@ -25,6 +25,7 @@ import numpy as np
 import torch
 
 from vlog_tpu_torch.codecs.h264.encoder import chroma_qp, to_host
+from vlog_tpu_torch.obs.trace import stage
 from vlog_tpu_torch.ops.transform import (
     core_transform,
     dequantize,
@@ -289,15 +290,19 @@ def encode_p_frame(y, u, v, ref_y, ref_u, ref_v, *, qp, search: int = 8):
     qp = qp.to(device=y.device, dtype=torch.int32)
     qpc = chroma_qp(qp).to(torch.int32)
     pad = search + 8
-    refp = edge_pad(ref_y.to(torch.int32), pad, pad, pad, pad)
-    planes = half_pel_planes(refp)
-    mv = motion_search(y, ref_y, search=search, refp=refp, planes=planes)
-    pred_y = mc_luma(ref_y, mv, search=search, refp=refp, planes=planes)
-    pred_u = mc_chroma(ref_u, mv, search=search)
-    pred_v = mc_chroma(ref_v, mv, search=search)
-    luma, recon_y = _inter_luma_residual(y.to(torch.int32), pred_y, qp)
-    udc, uac, recon_u = _inter_chroma_residual(u.to(torch.int32), pred_u, qpc)
-    vdc, vac, recon_v = _inter_chroma_residual(v.to(torch.int32), pred_v, qpc)
+    with stage("h264.me"):
+        refp = edge_pad(ref_y.to(torch.int32), pad, pad, pad, pad)
+        planes = half_pel_planes(refp)
+        mv = motion_search(y, ref_y, search=search, refp=refp, planes=planes)
+    with stage("h264.residual"):
+        pred_y = mc_luma(ref_y, mv, search=search, refp=refp, planes=planes)
+        pred_u = mc_chroma(ref_u, mv, search=search)
+        pred_v = mc_chroma(ref_v, mv, search=search)
+        luma, recon_y = _inter_luma_residual(y.to(torch.int32), pred_y, qp)
+        udc, uac, recon_u = _inter_chroma_residual(u.to(torch.int32), pred_u,
+                                                   qpc)
+        vdc, vac, recon_v = _inter_chroma_residual(v.to(torch.int32), pred_v,
+                                                   qpc)
     return {
         "luma": luma,                                  # (n,mbh,mbw,4,4,4,4)
         "chroma_dc": torch.stack([udc, vdc], 1),       # (n,2,mbh,mbw,2,2)

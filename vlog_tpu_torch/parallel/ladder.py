@@ -32,6 +32,7 @@ from vlog_tpu_torch.codecs.h264.deblock import deblock_frame, intra_bs, p_bs
 from vlog_tpu_torch.codecs.h264.encoder import encode_frame
 from vlog_tpu_torch.codecs.h264.inter import edge_pad, encode_p_frame
 from vlog_tpu_torch.device import resolve_device
+from vlog_tpu_torch.obs.trace import stage
 from vlog_tpu_torch.ops.bitproxy import cost_proxy
 from vlog_tpu_torch.ops.fused_resize import resize_yuv420
 from vlog_tpu_torch.ops.resize import plan_ladder_matrices
@@ -91,63 +92,72 @@ def _one_rung(y, u, v, rung_mats, qps, h, w, *, search, deblock, rcr):
         raise ValueError("chain programs need chains of >= 2 frames")
     dev = y.device
     flat = lambda p: p.reshape((n * clen,) + tuple(p.shape[2:]))  # noqa: E731
-    ry, ru, rv = resize_yuv420(flat(y), flat(u), flat(v), rung_mats)
-    py, pu, pv = _pad_mb(ry, ru, rv)
+    with stage("h264.resize"):
+        ry, ru, rv = resize_yuv420(flat(y), flat(u), flat(v), rung_mats)
+        py, pu, pv = _pad_mb(ry, ru, rv)
     unflat = lambda p: p.reshape((n, clen) + tuple(p.shape[1:]))  # noqa: E731
     py, pu, pv, ry = unflat(py), unflat(pu), unflat(pv), unflat(ry)
     mbh, mbw = py.shape[-2] // 16, py.shape[-1] // 16
 
-    i_out = encode_frame(py[:, 0], pu[:, 0], pv[:, 0], qp=qps[:, 0])
+    with stage("h264.intra"):
+        i_out = encode_frame(py[:, 0], pu[:, 0], pv[:, 0], qp=qps[:, 0])
     rec = (i_out["recon_y"], i_out["recon_u"], i_out["recon_v"])
     if deblock:
-        ibs_v, ibs_h = intra_bs(mbh, mbw, dev)
-        rec = deblock_frame(*rec, qp=qps[:, 0], bs_v=ibs_v, bs_h=ibs_h)
-        rec = tuple(p.to(torch.uint8) for p in rec)
+        with stage("h264.deblock"):
+            ibs_v, ibs_h = intra_bs(mbh, mbw, dev)
+            rec = deblock_frame(*rec, qp=qps[:, 0], bs_v=ibs_v, bs_h=ibs_h)
+            rec = tuple(p.to(torch.uint8) for p in rec)
     sses = [_sse(rec[0], ry[:, 0], h, w)]
     if rcr is not None:
-        budget = torch.clamp(_as_tensor(rcr["budget"], dev, torch.float32),
-                             min=1.0)
-        alpha = _as_tensor(rcr["alpha"], dev, torch.float32)
-        costs = [cost_proxy(i_out["luma_dc"], i_out["luma_ac"],
-                            i_out["chroma_dc"], i_out["chroma_ac"],
-                            batch_ndim=1)]
-        # balance starts at zero: the I frame's planned overspend is the
-        # host outer loop's to account for (see the JAX reference)
-        bal = torch.zeros_like(costs[0])
-        q_eff = [qps[:, 0].to(torch.int16)]
+        with stage("h264.rc"):
+            budget = torch.clamp(_as_tensor(rcr["budget"], dev,
+                                            torch.float32), min=1.0)
+            alpha = _as_tensor(rcr["alpha"], dev, torch.float32)
+            costs = [cost_proxy(i_out["luma_dc"], i_out["luma_ac"],
+                                i_out["chroma_dc"], i_out["chroma_ac"],
+                                batch_ndim=1)]
+            # balance starts at zero: the I frame's planned overspend is
+            # the host outer loop's to account for (see the JAX reference)
+            bal = torch.zeros_like(costs[0])
+            q_eff = [qps[:, 0].to(torch.int16)]
 
     p_out = {"luma": [], "chroma_dc": [], "chroma_ac": [], "mv": []}
     for t in range(1, clen):
         if rcr is None:
             q = qps[:, t]
         else:
-            adj = torch.clamp(torch.trunc(bal / (3.0 * budget)),
-                              -1.0, 8.0).to(torch.int32)
-            q = torch.clamp(qps[:, t] + adj, 10, 51)
-        pout = encode_p_frame(py[:, t], pu[:, t], pv[:, t], *rec, qp=q,
-                              search=search)
-        rec = (pout["recon_y"], pout["recon_u"], pout["recon_v"])
-        if deblock:
-            # bS from what the decoder sees: coded levels + motion field
-            nz = (pout["luma"] != 0).any(-1).any(-1)      # (n,mbh,mbw,4,4)
-            nz4 = nz.permute(0, 1, 3, 2, 4).reshape(n, 4 * mbh, 4 * mbw)
-            bsv, bsh = p_bs(nz4, pout["mv"])
-            rec = deblock_frame(*rec, qp=q, bs_v=bsv, bs_h=bsh)
-            rec = tuple(p.to(torch.uint8) for p in rec)
+            with stage("h264.rc"):
+                adj = torch.clamp(torch.trunc(bal / (3.0 * budget)),
+                                  -1.0, 8.0).to(torch.int32)
+                q = torch.clamp(qps[:, t] + adj, 10, 51)
+        with stage("h264.p_frame"):
+            pout = encode_p_frame(py[:, t], pu[:, t], pv[:, t], *rec, qp=q,
+                                  search=search)
+            rec = (pout["recon_y"], pout["recon_u"], pout["recon_v"])
+            if deblock:
+                with stage("h264.deblock"):
+                    # bS from what the decoder sees: levels + motion field
+                    nz = (pout["luma"] != 0).any(-1).any(-1)  # (n,mbh,mbw,4,4)
+                    nz4 = nz.permute(0, 1, 3, 2, 4).reshape(n, 4 * mbh,
+                                                            4 * mbw)
+                    bsv, bsh = p_bs(nz4, pout["mv"])
+                    rec = deblock_frame(*rec, qp=q, bs_v=bsv, bs_h=bsh)
+                    rec = tuple(p.to(torch.uint8) for p in rec)
         sses.append(_sse(rec[0], ry[:, t], h, w))
         for k in p_out:
             p_out[k].append(pout[k].to(torch.int16))
         if rcr is not None:
-            cost = cost_proxy(pout["luma"], pout["chroma_dc"],
-                              pout["chroma_ac"], batch_ndim=1)
-            # anti-windup: credit floors at 3 frames of budget, debt tops
-            # at what +8 QP can repay
-            step = torch.where(alpha > 0, cost * alpha - budget,
-                               torch.zeros_like(cost))
-            bal = torch.minimum(torch.maximum(bal + step, -3.0 * budget),
-                                30.0 * budget)
-            costs.append(cost)
-            q_eff.append(q.to(torch.int16))
+            with stage("h264.rc"):
+                cost = cost_proxy(pout["luma"], pout["chroma_dc"],
+                                  pout["chroma_ac"], batch_ndim=1)
+                # anti-windup: credit floors at 3 frames of budget, debt
+                # tops at what +8 QP can repay
+                step = torch.where(alpha > 0, cost * alpha - budget,
+                                   torch.zeros_like(cost))
+                bal = torch.minimum(torch.maximum(bal + step, -3.0 * budget),
+                                    30.0 * budget)
+                costs.append(cost)
+                q_eff.append(q.to(torch.int16))
 
     out = {
         "i_luma_dc": i_out["luma_dc"].to(torch.int16),
@@ -215,12 +225,15 @@ def ladder_chain_program(rungs: tuple[RungSpec, ...], src_h: int, src_w: int,
 
     def fn(y, u, v, mats, qps, rc=None):
         y, u, v = (torch.as_tensor(p, device=dev) for p in (y, u, v))
-        return {name: _one_rung(
+        out = {}
+        for name, h, w, _ in rungs:
+            with stage("h264.rung"):
+                out[name] = _one_rung(
                     y, u, v, mats[name],
                     _as_tensor(qps[name], dev, torch.int32),
                     h, w, search=search, deblock=deblock,
                     rcr=None if rc is None else rc[name])
-                for name, h, w, _ in rungs}
+        return out
 
     return fn, mats
 
