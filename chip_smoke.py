@@ -5,10 +5,10 @@
 Phases (any failure exits non-zero; none is caught):
 
 1. the card's name and power limit (nvidia-smi);
-2. build the fused resize kernel and the HEVC motion search kernel
-   (nvcc, sm_90a) and the native entropy coders (CABAC, CAVLC, JPEG
-   scan) from the checkout's sources, the three builds started together,
-   timed;
+2. build the fused resize kernel, the HEVC motion search kernel and the
+   H.264 deblocking kernel (nvcc, sm_90a) and the native entropy coders
+   (CABAC, CAVLC, JPEG scan) from the checkout's sources, the four builds
+   started together, timed;
 2a. analysis: the port's static-analysis passes
    (``vlog_tpu_torch.analysis.run_passes``) over the checkout's
    ``vlog_tpu_torch/`` on this machine's Python: the count of findings
@@ -37,6 +37,19 @@ Phases (any failure exits non-zero; none is caught):
    (the larger of its int32 inputs' bytes over the memory rate and its
    SAD and filter operations over the int32 rate) and share of it, and
    the plain version's device and call ms;
+3b. the H.264 deblocking kernel against the plain wavefront
+   (``codecs/h264/deblock.py::wavefront``) on the card at the ladder's
+   call (6 chains of 368x640, the 360p rung) and the decoder's (one
+   1088x1920 picture), each with all-intra bS and with P bS of seeded
+   coded blocks and MVs: every pixel identical, one kernel a call; its
+   device ms per call after an L2 flush, its call ms, the plain
+   wavefront's call ms (CUDA events), its chain bound (the luma
+   block's 8 steps a diagonal at the barrier step latency that the
+   library's probe measures at the call's block size) beside its bytes
+   bound, and its share; every later phase counts the chain step's and
+   the decoder's filter calls on the card and fails unless each launched
+   the kernel once, and the slice, intra and TS phases unless the chain
+   step made the calls their plans fix;
 4. the integer stages (intra, P, deblock) on CPU and on CUDA from the
    same uint8 frames: levels, MVs and reconstructions must be identical;
    the HEVC motion search on the CPU (the plain stages) and on CUDA (the
@@ -323,6 +336,7 @@ import re
 import shutil
 import subprocess
 import sys
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
@@ -375,6 +389,13 @@ RUNG_SHAPES = ((720, 1280), (480, 854), (360, 640))
 ME_SHAPES = ((1088, 1920), (736, 1280), (480, 864), (384, 640))
 ME_CHAINS = 6
 ME_PLAIN_REPS = 3
+# The H.264 deblocking kernel: the ladder's call (the 360p rung's 6
+# chains, 368x640) and the decoder's (one 1088x1920 picture), each with
+# intra and with P bS; the plain wavefront (94,000-284,000 launches a
+# call) timed by its call ms alone: a profile that large leaves later
+# profiles of the process losing events
+DB_SHAPES = ((6, 368, 640), (1, 1088, 1920))
+DB_QP = 33                  # the ladder's P QP
 # Frames per kernel call on the driven paths: a 24-frame chain (hevc,
 # the scheduler's HEVC job, the daemon's and the remote phase's
 # re-encodes; the library phase's ladder resize), an intra dispatch of 8
@@ -674,26 +695,28 @@ def witness_end(base: dict, phase_s: dict) -> None:
 
 def phase_build():
     from vlog_tpu_torch.native import build as native_build
-    from vlog_tpu_torch.ops import fused_resize, motion_search
+    from vlog_tpu_torch.ops import fused_resize, h264_deblock, motion_search
 
     def timed(fn):
         t0 = time.perf_counter()
         fn()
         return time.perf_counter() - t0
 
-    # both nvcc runs and g++ at once; an error in any is raised here
-    with ThreadPoolExecutor(3) as pool:
+    # the three nvcc runs and g++ at once; an error in any is raised here
+    with ThreadPoolExecutor(4) as pool:
         kernel = pool.submit(timed, fused_resize.load_library)
         me = pool.submit(timed, motion_search.load_library)
+        db = pool.submit(timed, h264_deblock.load_library)
         native = pool.submit(timed, native_build.get_lib)
-        t_kernel, t_me, t_native = (kernel.result(), me.result(),
-                                    native.result())
-    for mod in (fused_resize, motion_search):
+        t_kernel, t_me, t_db, t_native = (kernel.result(), me.result(),
+                                          db.result(), native.result())
+    for mod in (fused_resize, motion_search, h264_deblock):
         report = [ln.strip() for ln in mod.build_log.splitlines()
                   if "registers" in ln or "spill" in ln or "Compiling" in ln]
         log(f"ptxas ({mod.__name__.rsplit('.', 1)[1]}): " + " | ".join(report))
     log(f"build: fused_resize {t_kernel:.2f}s (nvcc {fused_resize.build_seconds:.2f}s), "
         f"motion_search {t_me:.2f}s (nvcc {motion_search.build_seconds:.2f}s), "
+        f"h264_deblock {t_db:.2f}s (nvcc {h264_deblock.build_seconds:.2f}s), "
         f"native CABAC/CAVLC/JPEG {t_native:.2f}s")
 
 
@@ -888,6 +911,102 @@ def phase_me_kernel(timer: DeviceTimer) -> dict:
                        "bound_ms")}
     tot["share_of_bound"] = tot["bound_ms"] / tot["ms"]
     log("motion search per 144-frame dispatch (23 P steps x 4 rungs) "
+        + json.dumps(tot))
+    return tot
+
+
+def _db_case(n: int, h: int, w: int, seed: int, dev):
+    """A deblocking call's inputs: uint8 planes of moving content (as the
+    encoder's reconstructions) and both kinds of bS, {"intra": all-intra,
+    "p": ``p_bs`` of seeded coded blocks (30%) and MVs}."""
+    from vlog_tpu_torch.codecs.h264.deblock import intra_bs, p_bs
+
+    planes = tuple(torch.as_tensor(p, device=dev)
+                   for p in _smooth_frames(n, h, w, seed))
+    mbh, mbw = h // 16, w // 16
+    rng = np.random.default_rng(seed)
+    nz4 = torch.as_tensor(rng.random((n, 4 * mbh, 4 * mbw)) < 0.3,
+                          dtype=torch.int32, device=dev)
+    mv = torch.as_tensor(rng.integers(-9, 10, (n, mbh, mbw, 2)),
+                         dtype=torch.int32, device=dev)
+    return planes, {"intra": intra_bs(mbh, mbw, dev), "p": p_bs(nz4, mv)}
+
+
+def phase_h264_deblock_kernel(timer: DeviceTimer) -> dict:
+    """The H.264 deblocking kernel at the ladder's and the decoder's
+    shapes: held to the plain wavefront on the card bit for bit, timed
+    against it, against its chain bound and its bytes bound. The chain
+    bound is the luma block's 8 steps a diagonal at the step latency
+    that the kernel library's probe measures at the call's block size:
+    a barrier and a dependent write and read of device memory, as the
+    kernel's planes are there (``barrier_ms``: the same steps through
+    shared memory, the floor of any design)."""
+    from vlog_tpu_torch.codecs.h264 import deblock as dbk
+    from vlog_tpu_torch.ops import h264_deblock
+
+    dev = torch.device("cuda")
+    rows = []
+    for k, (n, h, w) in enumerate(DB_SHAPES):
+        mbh, mbw = h // 16, w // 16
+        planes, cases = _db_case(n, h, w, 40 + k, dev)
+        qp = torch.full((n,), DB_QP, dtype=torch.int32, device=dev)
+        steps = 8 * (mbh + mbw - 1)
+        threads = h264_deblock.threads_per_block(mbh, mbw)
+        probe_ms, barrier_ms = (timer.ms(
+            lambda g=g: h264_deblock.barrier_probe(threads, steps, dev,
+                                                   global_mem=g), REPS)
+            for g in (True, False))
+        # bytes: the uint8 planes read once, the int32 planes written once
+        nbytes = (1 + 4) * n * h * w * 3 // 2
+        for kind, (bsv, bsh) in cases.items():
+            def kern():
+                return dbk.deblock_frame(*planes, qp=qp, bs_v=bsv, bs_h=bsh)
+
+            def plain():
+                return dbk.wavefront(*planes, qp=qp, bs_v=bsv, bs_h=bsh)
+
+            got, want = kern(), plain()
+            for a, b, name in zip(got, want, "YUV"):
+                if not torch.equal(a, b):
+                    fail(f"h264 deblock kernel {name} differs from the plain "
+                         f"wavefront at {n}x{h}x{w} ({kind}): "
+                         f"{int((a != b).sum())} of {a.numel()}")
+            row = {"shape": [n, h, w], "bs": kind, "threads": threads,
+                   "changed_px": sum(int((a != p.to(torch.int32)).sum())
+                                     for a, p in zip(want, planes))}
+            # a profile may drop one of the calls' kernels (seen once in 20
+            # at 1080p, repeated): every call launches one kernel (the
+            # counter), so the ms per call is the mean over those recorded
+            calls, before = [0], h264_deblock.launches
+
+            def counted():
+                calls[0] += 1
+                return kern()
+
+            ms = timer.ms(counted, REPS)
+            if h264_deblock.launches - before != calls[0]:
+                fail(f"h264 deblock: {h264_deblock.launches - before} "
+                     f"launches for {calls[0]} calls")
+            row["profiled_kernels_per_call"] = timer.kernels_per_call
+            row["ms"] = ms / timer.kernels_per_call
+            row["call_ms"] = call_ms(kern, REPS)
+            row["plain_call_ms"] = call_ms(plain, 1)
+            row["steps"] = steps
+            row["step_us"] = probe_ms * 1e3 / steps
+            row["chain_ms"] = probe_ms
+            row["barrier_ms"] = barrier_ms
+            row["bytes_ms"] = nbytes / PEAK_BYTES_PER_S * 1e3
+            row["bound_ms"] = max(row["chain_ms"], row["bytes_ms"])
+            row["bound_by"] = "chain" if row["chain_ms"] >= row["bytes_ms"] else "bytes"
+            row["share_of_bound"] = row["bound_ms"] / row["ms"]
+            rows.append(row)
+            log("h264 deblock " + json.dumps(row))
+    # one 144-frame ladder dispatch of the 360p rung: an I and 23 P calls
+    i_row, p_row = rows[0], rows[1]
+    tot = {key: i_row[key] + (FRAMES - 1) * p_row[key]
+           for key in ("ms", "call_ms", "plain_call_ms", "bound_ms")}
+    tot["share_of_bound"] = tot["bound_ms"] / tot["ms"]
+    log("h264 deblock per 144-frame 360p dispatch (1 I + 23 P calls) "
         + json.dumps(tot))
     return tot
 
@@ -1165,6 +1284,76 @@ def _me_check(phase: str, want: int | None) -> int:
     return got
 
 
+# The H.264 deblocking kernel's launches in each phase. ``_db_install``
+# wraps the two callers of the filter on the main path (the chain step's
+# ``deblock_frame`` in parallel/ladder.py and the decoder's
+# ``deblock_decoded``) to count their calls on a CUDA tensor; every phase
+# must launch the kernel exactly once a call (no fallback), and where a
+# phase's plan fixes the chain step's calls (``DB_PLAN``: an I and a P
+# call a frame of each dispatch's chain, each rung) it must make those.
+# The phases that call the filter only to check or time it are left out.
+DB_LAUNCHES: dict[str, int] = {}
+DB_CALLS = {"chain": 0, "decoder": 0}
+DB_PLAN: dict[str, int] = {}
+DB_CHECK_ONLY = ("h264_deblock_kernel", "integer", "breakdown")
+_DB_LOCK = threading.Lock()
+
+
+def _db_install() -> None:
+    from vlog_tpu_torch.codecs.h264 import decoder
+    from vlog_tpu_torch.parallel import ladder
+
+    def counted(key, fn):
+        def call(y, *args, **kw):
+            if y.device.type == "cuda":
+                with _DB_LOCK:
+                    DB_CALLS[key] += 1
+            return fn(y, *args, **kw)
+        return call
+
+    ladder.deblock_frame = counted("chain", ladder.deblock_frame)
+    decoder.deblock_decoded = counted("decoder", decoder.deblock_decoded)
+
+
+def _db_per_run(plan, frames: int) -> int:
+    """The chain step's deblocking calls of one H.264 run of ``plan``
+    over ``frames`` source frames: each dispatch's chains filter
+    together, one call per frame of the chain, each rung; none for an
+    intra plan or with deblocking off."""
+    from vlog_tpu_torch import config
+
+    if plan.gop_len < 2 or not config.H264_DEBLOCK:
+        return 0
+    return len(plan.rungs) * sum(min(c, plan.gop_len)
+                                 for c in _call_counts(plan, frames))
+
+
+def _db_reset() -> None:
+    from vlog_tpu_torch.ops import h264_deblock
+
+    with _DB_LOCK:
+        h264_deblock.launches = 0
+        DB_CALLS.update(chain=0, decoder=0)
+
+
+def _db_check(phase: str) -> int:
+    """Fails unless the phase launched the deblocking kernel once a call
+    of the wrapped callers, and made ``DB_PLAN[phase]`` chain calls
+    where its plan fixed them; keeps the count in ``DB_LAUNCHES``."""
+    from vlog_tpu_torch.ops import h264_deblock
+
+    got, calls = h264_deblock.launches, dict(DB_CALLS)
+    if got != sum(calls.values()) * h264_deblock.LAUNCHES_PER_CALL:
+        fail(f"{phase}: {got} H.264 deblocking launches for the calls "
+             f"{calls} (one a call)")
+    want = DB_PLAN.pop(phase, None)
+    if want is not None and calls["chain"] != want:
+        fail(f"{phase}: {calls['chain']} chain-step deblocking calls, "
+             f"expected {want} from its plan")
+    DB_LAUNCHES[phase] = got
+    return got
+
+
 def phase_slice(src: Path) -> int:
     from vlog_tpu_torch.backends.torch_backend import TorchBackend
     from vlog_tpu_torch.codecs.jpeg.encoder import pack_jpeg
@@ -1180,6 +1369,7 @@ def phase_slice(src: Path) -> int:
         + f"; gop {plan.gop_len}, frame_batch {plan.frame_batch}, "
         f"thumbnail {plan.thumbnail}")
     dispatches = len(_frames_per_call(plan, "slice", SLICE_FRAMES))
+    DB_PLAN["slice"] = _db_per_run(plan, SLICE_FRAMES)
     scaled = sum(1 for r in plan.rungs
                  if (r.height, r.width) != (SRC_H, SRC_W))
     thumb_launches = 3 * fused_resize.LAUNCHES_PER_CALL   # Y, U, V once
@@ -1255,6 +1445,7 @@ def phase_intra(src: Path) -> int:
     plan = backend.plan(get_video_info(src), out_dir=out, gop_mode="intra",
                         thumbnail=False)
     dispatches = len(_frames_per_call(plan, "intra", INTRA_FRAMES))
+    DB_PLAN["intra"] = _db_per_run(plan, INTRA_FRAMES)    # 0: intra
     scaled = sum(1 for r in plan.rungs if (r.height, r.width) != (SRC_H, SRC_W))
     fused_resize.launches = 0
     t0 = time.perf_counter()
@@ -1447,7 +1638,8 @@ def phase_library(src: Path, work: Path) -> int:
     built = sorted(p.name for p in build.glob("*.so"))
     if warm.returncode != 0 or not {"libvt_native.so",
                                     "libvt_fused_resize.so",
-                                    "libvt_hevc_motion_search.so"} <= set(built):
+                                    "libvt_hevc_motion_search.so",
+                                    "libvt_h264_deblock.so"} <= set(built):
         fail(f"library: the warm-up step exited {warm.returncode}, built "
              f"{built}: {w_err[-2000:]}")
     report["deploy_warm_up"] = {"s": round(time.perf_counter() - t_warm, 3),
@@ -2003,6 +2195,7 @@ def phase_ts(src: Path) -> int:
                         frame_batch=SHORT_BATCH, thumbnail=False,
                         streaming_format="hls_ts")
     _frames_per_call(plan, "ts", TS_FRAMES)
+    DB_PLAN["ts"] = _db_per_run(plan, TS_FRAMES)
     fused_resize.launches = 0
     t0 = time.perf_counter()
     res = backend.run(plan)
@@ -2918,12 +3111,14 @@ def _runtime_profiler(backend, plan, work: Path) -> list[dict]:
 
 def _compile_warm() -> float:
     """compile_seconds() of a fresh process that loads the native and
-    both kernel libraries from the warm build directory."""
+    the three kernel libraries from the warm build directory."""
     code = ("import sys; sys.path.insert(0, %r)\n"
             "from vlog_tpu_torch.native import build\n"
-            "from vlog_tpu_torch.ops import fused_resize, motion_search\n"
+            "from vlog_tpu_torch.ops import fused_resize, h264_deblock, "
+            "motion_search\n"
             "from vlog_tpu_torch.parallel.compile_cache import compile_seconds\n"
             "fused_resize.load_library(); motion_search.load_library()\n"
+            "h264_deblock.load_library()\n"
             "build.get_lib()\n"
             "print(compile_seconds())" % str(ROOT))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -4997,11 +5192,16 @@ def main() -> int:
     phase_s = {}
 
     def timed(name, fn, *args):
+        _db_reset()
         t0 = time.perf_counter()
         value = fn(*args)
         phase_s[name] = round(time.perf_counter() - t0, 2)
         log(f"phase {name}: {phase_s[name]}s")
+        if name not in DB_CHECK_ONLY:
+            _db_check(name)
         return value
+
+    _db_install()
 
     timed("build", phase_build)
     timed("analysis", phase_analysis)
@@ -5017,6 +5217,7 @@ def main() -> int:
     timer = DeviceTimer(torch.device("cuda"))
     kern = timed("kernel", phase_kernel, timer, FRAMES)
     me = timed("me_kernel", phase_me_kernel, timer)
+    db = timed("h264_deblock_kernel", phase_h264_deblock_kernel, timer)
     timed("integer", phase_integer)
     timed("aac", phase_aac, timer)      # fails on any resize launch
 
@@ -5065,6 +5266,7 @@ def main() -> int:
     _witness_reports(witness["stats"]["reports"])
     log("launches by phase " + json.dumps(launches))
     log("motion search launches by phase " + json.dumps(ME_LAUNCHES))
+    log("h264 deblock launches by phase " + json.dumps(DB_LAUNCHES))
     log("phase seconds " + json.dumps(phase_s))
     log(f"phase seconds sum {sum(phase_s.values()):.2f}")
 
@@ -5086,7 +5288,16 @@ def main() -> int:
         "launches_by_phase": ME_LAUNCHES,
         "ms_per_dispatch": me["ms"], "call_ms_per_dispatch": me["call_ms"],
         "plain_ms_per_dispatch": me["plain_ms"],
-        "bound_ms_per_dispatch": me["bound_ms"]}]}))
+        "bound_ms_per_dispatch": me["bound_ms"]}, {
+        "name": "h264_deblock", "route": "cuda",
+        "source": "vlog_tpu_torch/csrc/h264_deblock.cu",
+        "replaces": "none (vlog_tpu/codecs/h264/deblock.py::deblock_frame "
+                    "is plain jnp)",
+        "launches": sum(DB_LAUNCHES.values()),
+        "launches_by_phase": DB_LAUNCHES,
+        "ms_per_dispatch": db["ms"], "call_ms_per_dispatch": db["call_ms"],
+        "plain_call_ms_per_dispatch": db["plain_call_ms"],
+        "bound_ms_per_dispatch": db["bound_ms"]}]}))
     log(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

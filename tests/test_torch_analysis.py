@@ -313,6 +313,28 @@ class TestPallasShimPort:
         })
         assert tan.run_passes(pkg, rules=["pallasshim"]) == []
 
+    @pytest.mark.parametrize("module", ["ops/cuda_build.py",
+                                        "ops/fused_resize.py",
+                                        "ops/motion_search.py",
+                                        "ops/h264_deblock.py"])
+    def test_each_kernel_module_may_build_csrc(self, tmp_path, module):
+        """The kernel modules build and load csrc/; the same code one
+        directory over (or under another name in ops/) is a finding."""
+        code = """\
+            import ctypes
+            import subprocess
+
+            def build():
+                subprocess.run(["nvcc", "-o", "k.so", "csrc/k.cu"])
+                return ctypes.CDLL("k.so")
+        """
+        rogue = module.replace(".py", "_copy.py")
+        pkg = ref_tests._pkg(tmp_path, {module: code, rogue: code})
+        found = tan.run_passes(pkg, rules=["pallasshim"])
+        assert {f.file.rsplit("/", 1)[-1] for f in found} == {
+            rogue.rsplit("/", 1)[-1]}
+        assert all("ops/h264_deblock.py" in f.message for f in found)
+
     def test_real_port_is_clean(self):
         assert [f for f in _port_findings() if f.rule == "pallasshim"] == []
 

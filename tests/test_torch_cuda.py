@@ -10,7 +10,10 @@ remote worker (over the port's Worker API) on the card; the one-call
 resize API (``ops.ladder_resize_yuv420``) through the kernel; the HEVC
 motion search kernel against the plain search stages (MVs and costs bit
 for bit), the chain DSP through it on CUDA against the CPU, and its
-launch count.
+launch count; the H.264 deblocking kernel against the plain wavefront on
+the CPU (every pixel, at the ladder's and the decoder's shapes, random
+bS at every QP, one-macroblock frames) and its launches in a chain
+step.
 
 Marked ``cuda``; each test skips (in its fixture) without a CUDA
 device. On a machine with a card and without JAX, run them alone:
@@ -1184,3 +1187,144 @@ def test_motion_search_launches_once_per_p_step_and_rung(cuda):  # slowlane-ok: 
     torch.cuda.synchronize()
     assert motion_search.launches - before == 92
     assert all(out[r[0]]["mv"].shape[:2] == (6, 23) for r in rungs)
+
+
+# --------------------------------------------------------- H.264 deblock
+# The deblocking kernel (ops/h264_deblock.py) against the plain wavefront
+# of codecs/h264/deblock.py on the CPU, from the same inputs: every output
+# pixel bit for bit, one launch a call.
+
+def _deblock_on_card_and_cpu(planes, qp, bs_v, bs_h):
+    """deblock_frame on the card (the kernel: one launch) and on the CPU
+    (the plain wavefront) from the same inputs; asserts they agree and
+    returns the CPU's planes and the pixels the filter changed."""
+    from vlog_tpu_torch.codecs.h264.deblock import deblock_frame
+    from vlog_tpu_torch.ops import h264_deblock
+
+    before = h264_deblock.launches
+    got = deblock_frame(*(p.cuda() for p in planes), qp=qp.cuda(),
+                        bs_v=bs_v.cuda(), bs_h=bs_h.cuda())
+    assert h264_deblock.launches == before + 1
+    want = deblock_frame(*(p.cpu() for p in planes), qp=qp.cpu(),
+                         bs_v=bs_v.cpu(), bs_h=bs_h.cpu())
+    for g, w, name in zip(got, want, "yuv"):
+        assert g.dtype == torch.int32 and g.shape == w.shape, name
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy(), err_msg=name)
+    changed = sum(int((w != p.cpu().to(torch.int32)).sum())
+                  for w, p in zip(want, planes))
+    return want, changed
+
+
+def test_deblock_kernel_at_the_ladder_shape(cuda):  # slowlane-ok: 6 frames of 368x640, card only
+    """The 360p rung's calls: 6 chains' I frames with intra bS, then
+    their P frames with ``p_bs`` of the encoder's levels and MVs."""
+    import chip_smoke
+    from vlog_tpu_torch.codecs.h264.deblock import intra_bs, p_bs
+    from vlog_tpu_torch.codecs.h264.encoder import encode_frame
+    from vlog_tpu_torch.codecs.h264.inter import encode_p_frame
+
+    y, u, v = (torch.as_tensor(p, device=cuda)
+               for p in chip_smoke._smooth_frames(12, 368, 640, seed=21))
+    qp = torch.tensor([26, 29, 31, 33, 36, 40], dtype=torch.int32, device=cuda)
+    i = encode_frame(y[0::2], u[0::2], v[0::2], qp=qp)
+    rec, changed = _deblock_on_card_and_cpu(
+        (i["recon_y"], i["recon_u"], i["recon_v"]), qp, *intra_bs(23, 40, cuda))
+    assert changed > 0
+    rec = tuple(p.to(torch.uint8).to(cuda) for p in rec)
+    p = encode_p_frame(y[1::2], u[1::2], v[1::2], *rec, qp=qp, search=8)
+    nz = (p["luma"] != 0).any(-1).any(-1)
+    bsv, bsh = p_bs(nz.permute(0, 1, 3, 2, 4).reshape(6, 92, 160), p["mv"])
+    assert int(bsv.max()) > 0 and int(bsv.min()) == 0
+    _, changed = _deblock_on_card_and_cpu(
+        (p["recon_y"], p["recon_u"], p["recon_v"]), qp, bsv, bsh)
+    assert changed > 0
+
+
+@pytest.mark.parametrize("is_p", [False, True])
+def test_deblock_kernel_at_the_decoder_shape(cuda, is_p):  # slowlane-ok: one 1088x1920 frame, card only
+    """The decoder's call: one 1088x1920 picture, an int qp."""
+    import chip_smoke
+    from vlog_tpu_torch.codecs.h264.deblock import deblock_frame, intra_bs, p_bs
+    from vlog_tpu_torch.ops import h264_deblock
+
+    planes = tuple(torch.as_tensor(p[:1])
+                   for p in chip_smoke._smooth_frames(1, 1088, 1920, seed=22))
+    rng = np.random.default_rng(22)
+    if is_p:
+        nz4 = torch.as_tensor(rng.random((1, 272, 480)) < 0.3, dtype=torch.int32)
+        mv = torch.as_tensor(rng.integers(-9, 10, (1, 68, 120, 2)), dtype=torch.int32)
+        bsv, bsh = p_bs(nz4, mv)
+    else:
+        bsv, bsh = intra_bs(68, 120, "cpu")
+    before = h264_deblock.launches
+    got = deblock_frame(*(p.to(cuda) for p in planes), qp=34,
+                        bs_v=bsv.to(cuda), bs_h=bsh.to(cuda))
+    assert h264_deblock.launches == before + 1
+    want = deblock_frame(*planes, qp=34, bs_v=bsv, bs_h=bsh)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.cpu().numpy(), w.numpy())
+    assert int((want[0] != planes[0].to(torch.int32)).sum()) > 0
+
+
+def test_deblock_kernel_random_bs_at_every_qp(cuda):
+    """Random bS 0-4 on both edge directions, one frame at each QP 0-51
+    (below 16 alpha and beta are 0 and nothing is filtered), noisy
+    content around a per-frame level so that every filter branch runs."""
+    rng = np.random.default_rng(23)
+    n, mbh, mbw = 52, 3, 4
+    base = rng.integers(40, 216, (n, 1, 1))
+
+    def plane(h, w, spread):
+        a = base + rng.integers(-spread, spread + 1, (n, h, w))
+        return torch.as_tensor(np.clip(a, 0, 255)).to(torch.uint8)
+
+    planes = (plane(48, 64, 10), plane(24, 32, 5), plane(24, 32, 5))
+    qp = torch.arange(52, dtype=torch.int32)
+    bsv, bsh = (torch.as_tensor(rng.integers(0, 5, (n, mbh, mbw, 4, 4)),
+                                dtype=torch.int32) for _ in range(2))
+    want, changed = _deblock_on_card_and_cpu(planes, qp, bsv, bsh)
+    assert changed > 0
+    for w, p in zip(want, planes):       # QP < 16: the planes untouched
+        assert torch.equal(w[:16], p[:16].to(torch.int32))
+
+
+@pytest.mark.parametrize("h,w", [(16, 160), (160, 16), (16, 16)])
+def test_deblock_kernel_one_macroblock_wide_or_tall(cuda, h, w):
+    """A frame one macroblock wide, one one macroblock tall, and a single
+    macroblock: diagonals of one macroblock, picture edges everywhere."""
+    rng = np.random.default_rng(h + w)
+    planes = tuple(torch.as_tensor(rng.integers(90, 130, (3, a, b)),
+                                   dtype=torch.uint8)
+                   for a, b in ((h, w), (h // 2, w // 2), (h // 2, w // 2)))
+    qp = torch.tensor([30, 40, 51], dtype=torch.int32)
+    bsv, bsh = (torch.as_tensor(rng.integers(0, 5, (3, h // 16, w // 16, 4, 4)),
+                                dtype=torch.int32) for _ in range(2))
+    _, changed = _deblock_on_card_and_cpu(planes, qp, bsv, bsh)
+    assert changed > 0
+
+
+def test_one_rung_launches_the_deblock_kernel_once_a_frame(cuda):  # slowlane-ok: 2 chains of 24 frames at 48x64
+    """``_one_rung`` with deblocking on, a 24-frame chain step: one
+    launch for the I frame and one a P step (24), and every output equal
+    to the CPU's plain wavefront's."""
+    from vlog_tpu_torch.ops import h264_deblock
+    from vlog_tpu_torch.parallel.ladder import _one_rung
+
+    rng = np.random.default_rng(24)
+    y = rng.integers(0, 256, (2, 24, 48, 64), dtype=np.uint8)
+    u = rng.integers(0, 256, (2, 24, 24, 32), dtype=np.uint8)
+    qps = np.full((2, 24), 30, np.int32)
+    got = {}
+    for dev in ("cpu", cuda):
+        t = lambda a: torch.as_tensor(a, device=dev)     # noqa: E731
+        before = h264_deblock.launches
+        out = _one_rung(t(y), t(u), t(u), None, t(qps), 48, 64, search=8,
+                        deblock=True, rcr=None)
+        torch.cuda.synchronize()
+        assert h264_deblock.launches - before == (0 if dev == "cpu" else 24)
+        got[str(dev)] = {k: val.cpu().numpy() for k, val in out.items()}
+    for k, val in got["cpu"].items():
+        if k == "sse_y":                # float32 sums in the device's order
+            np.testing.assert_allclose(got["cuda"][k], val, rtol=1e-5)
+        else:
+            np.testing.assert_array_equal(got["cuda"][k], val, err_msg=k)

@@ -172,6 +172,8 @@ def test_dockerfile_copies_only_the_port_and_warms_both_builds():
                 if isinstance(n, ast.ImportFrom) for a in n.names}
     assert ("vlog_tpu_torch.native.build", "get_lib") in imported
     assert ("vlog_tpu_torch.ops.fused_resize", "build_library") in imported
+    assert {("vlog_tpu_torch.ops", "motion_search"),
+            ("vlog_tpu_torch.ops", "h264_deblock")} <= imported
 
 
 def _entrypoint() -> list[str]:

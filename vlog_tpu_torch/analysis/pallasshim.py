@@ -3,13 +3,15 @@
 The port's counterpart of the JAX package's Pallas rule, aimed at the
 port's own kernel surface. The kernel modules are ``ops/cuda_build.py``
 (the one ``nvcc`` build of ``csrc/``) and one guarded wrapper a kernel:
-``ops/fused_resize.py`` and ``ops/motion_search.py``. Each wrapper owns
+``ops/fused_resize.py``, ``ops/motion_search.py`` and
+``ops/h264_deblock.py``. Each wrapper owns
 its ctypes load and launch counter, and launches its hand-written kernel
 on a CUDA tensor while the plain PyTorch version serves a CPU tensor,
 with no fallback from one to the other. Program builders call
 :func:`~vlog_tpu_torch.ops.fused_resize.fused_resize_plane` (or the
 resize helpers over it) and reach the motion search through
-``codecs/hevc/core.py``; they never see a kernel. A second route to the
+``codecs/hevc/core.py`` and the deblocking filter through
+``codecs/h264/deblock.py``; they never see a kernel. A second route to the
 card — a library's kernel built on the fly, a compiled graph of the
 plain version, another loader of ``csrc/`` — would run kernel code past
 those guards: it is not counted, not held to the plain version, and
@@ -46,9 +48,10 @@ from vlog_tpu_torch.analysis.core import Finding, Module, dotted_name
 
 RULE = "pallasshim"
 
-_KERNEL_MODULES = ("cuda_build.py", "fused_resize.py", "motion_search.py")
-_SHIM = ("ops/fused_resize.py, ops/motion_search.py or ops/cuda_build.py "
-         "(the only sanctioned CUDA kernel surface)")
+_KERNEL_MODULES = ("cuda_build.py", "fused_resize.py", "motion_search.py",
+                   "h264_deblock.py")
+_SHIM = ("ops/fused_resize.py, ops/motion_search.py, ops/h264_deblock.py or "
+         "ops/cuda_build.py (the only sanctioned CUDA kernel surface)")
 _CPP_EXT = "torch.utils.cpp_extension"
 _KERNEL_LITERAL = re.compile(
     r"(^|[/\\])csrc([/\\]|$)|\.cuh?$|(^|[/\\])nvcc$")

@@ -4,10 +4,12 @@
 The filter is in-loop, so the reconstruction must follow the spec order
 exactly. Same wavefront as the reference: op ``idx`` (0-3 vertical, 4-7
 horizontal edges) of MB (r, c) runs at phase ``8*(r + c) + idx``, which is
-a linear extension of the spec's raster read/write order. Each phase is
-one batched gather/filter/scatter over the anti-diagonal's MBs and over
-every frame of the batch; U and V are filtered together as one stacked
-chroma batch (same bS and thresholds).
+a linear extension of the spec's raster read/write order. On the CPU each
+phase is one batched gather/filter/scatter over the anti-diagonal's MBs
+and over every frame of the batch; U and V are filtered together as one
+stacked chroma batch (same bS and thresholds). Any other device takes the
+hand-written kernel (ops/h264_deblock.py), which walks the same phases
+in one launch, or raises.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import numpy as np
 import torch
 
 from vlog_tpu_torch.codecs.h264.encoder import chroma_qp
+from vlog_tpu_torch.ops import h264_deblock
 
 # Spec Table 8-16 (alpha, beta by indexA/indexB 0..51).
 ALPHA = np.array([
@@ -203,13 +206,27 @@ def deblock_frame(y, u, v, *, qp, bs_v, bs_h):
 
     y (n, H, W), u/v (n, H/2, W/2) integer planes; ``qp`` int or (n,)
     int32; bS arrays (n, mbh, mbw, 4, 4) or unbatched (mbh, mbw, 4, 4).
-    Returns filtered (y, u, v) as int32, values in [0, 255]."""
-    n, h, w = y.shape
-    mbh, mbw = h // 16, w // 16
-    dev = y.device
+    Returns filtered (y, u, v) as int32, values in [0, 255]. A CPU
+    tensor takes the plain wavefront below; any other launches the
+    kernel (uint8 planes of whole macroblocks) or raises."""
+    n, dev = y.shape[0], y.device
     if not isinstance(qp, torch.Tensor):
         qp = torch.full((n,), int(qp), dtype=torch.int32, device=dev)
     qp = qp.to(device=dev, dtype=torch.int32)
+    if dev.type != "cpu":
+        return h264_deblock.deblock(y, u, v, qp=qp.contiguous(),
+                                    bs_v=bs_v.contiguous(),
+                                    bs_h=bs_h.contiguous())
+    return wavefront(y, u, v, qp=qp, bs_v=bs_v, bs_h=bs_h)
+
+
+def wavefront(y, u, v, *, qp, bs_v, bs_h):
+    """The plain wavefront of :func:`deblock_frame` on any device (the
+    CPU's route, and the version the kernel is held to and timed
+    against on the card); ``qp`` (n,) int32 on the planes' device."""
+    n, h, w = y.shape
+    mbh, mbw = h // 16, w // 16
+    dev = y.device
     if bs_v.dim() == 4:
         bs_v = bs_v[None].expand(n, -1, -1, -1, -1)
         bs_h = bs_h[None].expand(n, -1, -1, -1, -1)

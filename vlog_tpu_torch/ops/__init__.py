@@ -6,7 +6,9 @@
 - ``fused_resize`` the hand-written CUDA ladder resize (csrc/fused_resize.cu)
 - ``motion_search`` the hand-written CUDA HEVC motion search
                    (csrc/hevc_motion_search.cu)
-- ``cuda_build``   the nvcc build of both kernels
+- ``h264_deblock`` the hand-written CUDA H.264 deblocking filter
+                   (csrc/h264_deblock.cu)
+- ``cuda_build``   the nvcc build of the three kernels
 - ``transform``    H.264 4x4 integer transforms and quantization (exact)
 - ``bitproxy``     the rate controller's bit-cost proxy
 """

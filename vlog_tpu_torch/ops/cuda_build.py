@@ -1,6 +1,7 @@
 """The one ``nvcc`` build of the port's CUDA kernels (``csrc/*.cu``).
 
-Each kernel module (``ops/fused_resize.py``, ``ops/motion_search.py``)
+Each kernel module (``ops/fused_resize.py``, ``ops/motion_search.py``,
+``ops/h264_deblock.py``)
 compiles its source with :func:`build` into the build directory
 (parallel/compile_cache.py: the package's ignored ``_build/`` unless
 ``VLOG_COMPILE_CACHE_DIR`` is set) as a plain-C shared library for

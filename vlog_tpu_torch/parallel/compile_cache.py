@@ -4,9 +4,10 @@ per-process build meter (the port's counterpart of
 
 The reference persists XLA programs across processes. The port compiles
 no programs at run time; what it builds are its native libraries: the
-resize and motion search kernels with ``nvcc`` (``ops/cuda_build.py``,
-through ``ops/fused_resize.py::build_library`` and
-``ops/motion_search.py::build_library``) and the entropy coders and the
+resize, motion search and H.264 deblocking kernels with ``nvcc``
+(``ops/cuda_build.py``, through ``ops/fused_resize.py::build_library``,
+``ops/motion_search.py::build_library`` and
+``ops/h264_deblock.py::build_library``) and the entropy coders and the
 libav shim with the C compiler (``native/build.py``). Both build into :func:`build_dir` —
 ``VLOG_COMPILE_CACHE_DIR`` when set, else the package's ignored
 ``_build/`` — and rebuild only when a source is newer than its library,
