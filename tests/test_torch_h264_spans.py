@@ -113,8 +113,8 @@ def _stage_names(path: Path) -> set[str]:
 def test_readme_names_every_h264_span():
     pkg = ROOT / "vlog_tpu_torch"
     names = set()
-    for rel in ("backends/torch_backend.py", "parallel/ladder.py",
-                "codecs/h264/inter.py"):
+    for rel in ("backends/torch_backend.py", "backends/ladder_run.py",
+                "parallel/ladder.py", "codecs/h264/inter.py"):
         names |= _stage_names(pkg / rel)
     assert names == set(H264_SPANS)
     readme = (ROOT / "README.md").read_text()

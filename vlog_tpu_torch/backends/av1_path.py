@@ -27,19 +27,17 @@ from __future__ import annotations
 
 import ctypes
 import time
-from pathlib import Path
 
 import numpy as np
 
 import torch
 
 from vlog_tpu_torch import config
-from vlog_tpu_torch.backends.base import THUMBNAIL_NAME, RungResult, RunResult
+from vlog_tpu_torch.backends.base import RunResult
+from vlog_tpu_torch.backends.ladder_run import LadderRun, RungOutputs
 from vlog_tpu_torch.backends.source import open_source
 from vlog_tpu_torch.codecs.av1 import codec_string_from_tu, parse_seq_header
-from vlog_tpu_torch.media import hls
 from vlog_tpu_torch.media.fmp4 import (
-    Sample,
     TrackConfig,
     av01_sample_entry,
     av1c_record,
@@ -49,14 +47,10 @@ from vlog_tpu_torch.media.fmp4 import (
 from vlog_tpu_torch.native.build import get_av_lib
 from vlog_tpu_torch.ops.fused_resize import resize_yuv420
 from vlog_tpu_torch.parallel.compile_cache import ensure_compile_cache
-from vlog_tpu_torch.parallel.executor import (DecodePrefetch, PipelineExecutor,
-                                              dispatch_stream)
+from vlog_tpu_torch.parallel.executor import DecodePrefetch, dispatch_stream
 from vlog_tpu_torch.parallel.ladder import ladder_matrices, mats_from_numpy
 from vlog_tpu_torch.parallel.mesh import data_devices, pad_batch, shard_frames
-from vlog_tpu_torch.parallel.scheduler import (host_pool_for_run,
-                                               placement_for_run)
-from vlog_tpu_torch.utils.fsio import (atomic_write_bytes, atomic_write_text,
-                                       prepare_init_segment)
+from vlog_tpu_torch.parallel.scheduler import placement_for_run
 
 
 class Av1Unavailable(RuntimeError):
@@ -130,13 +124,6 @@ def run_av1(backend, plan, progress_cb, resume: bool, t0: float
             "AV1 re-encode needs the libav shim (system libavcodec with "
             "an AV1 encoder); it is unavailable or disabled")
 
-    out = Path(plan.out_dir)
-    out.mkdir(parents=True, exist_ok=True)
-    fps = plan.fps_num / plan.fps_den
-    frames_per_seg = max(1, round(plan.segment_duration_s * fps))
-    timescale = plan.fps_num * 1000
-    frame_dur = plan.fps_den * 1000
-
     # Mesh parity with the first-party paths: rungs are partitioned
     # into cost-balanced columns of the 2-D (data x rung) grid and
     # each rung's device resize runs on its owning column (slot
@@ -171,14 +158,14 @@ def run_av1(backend, plan, progress_cb, resume: bool, t0: float
             return tuple(p.cpu().numpy() for p in
                          resize_yuv420(y, u, v, mats[key]))
 
-    encoders: dict[str, _ShimEncoder] = {}
     tracks: dict[str, TrackConfig] = {}
+    outputs = RungOutputs(plan, lambda rung, index, base_time, chunk:
+                          media_segment(tracks[rung.name], index, base_time,
+                                        chunk))
+    frames_per_seg = outputs.frames_per_seg
+    encoders: dict[str, _ShimEncoder] = {}
     meta: dict[str, dict] = {}        # rung -> {profile, level, tier}
-    seg_counts: dict[str, int] = {}
-    seg_durs: dict[str, list[float]] = {}
-    bytes_written: dict[str, int] = {}
-    pending: dict[str, list[Sample]] = {}
-    frame_idx: dict[str, int] = {}
+    frame_idx = {r.name: 0 for r in plan.rungs}
 
     def _close_all() -> None:
         for enc in encoders.values():
@@ -189,11 +176,6 @@ def run_av1(backend, plan, progress_cb, resume: bool, t0: float
             encoders[rung.name] = _ShimEncoder(
                 lib, rung.width, rung.height, plan.fps_num, plan.fps_den,
                 rung.video_bitrate, frames_per_seg)
-            seg_counts[rung.name] = 0
-            seg_durs[rung.name] = []
-            bytes_written[rung.name] = 0
-            pending[rung.name] = []
-            frame_idx[rung.name] = 0
         src = open_source(plan.source.path, dev)
     except BaseException:
         _close_all()
@@ -203,20 +185,8 @@ def run_av1(backend, plan, progress_cb, resume: bool, t0: float
         # resume: AV1 tracks are written by a third-party encoder whose
         # bitstream state we cannot reconstruct mid-stream — restart
         # clean (the tree is still atomically replaced per segment)
-        start_frame = 0
-
         ensure_compile_cache()
-
         batch_n = max(1, plan.frame_batch)
-        # same stage fields as the first-party paths: device_pull is the
-        # device resize + d2h, entropy the delegated encoder, package
-        # the fMP4 segment writes (compute_wait stays 0 — the delegated
-        # encoder has no separate async device stage)
-        prof = {"decode_wait_s": 0.0, "compute_wait_s": 0.0,
-                "device_pull_s": 0.0, "entropy_s": 0.0, "package_s": 0.0}
-
-        frames_done = 0
-        thumb_path = None
 
         def ensure_track(rung, first_tu: bytes) -> None:
             """Build the av01 track from the first keyframe TU's
@@ -227,34 +197,19 @@ def run_av1(backend, plan, progress_cb, resume: bool, t0: float
             meta[rung.name] = {"profile": prof, "level": level,
                                "tier": tier}
             tracks[rung.name] = TrackConfig(
-                track_id=1, handler="vide", timescale=timescale,
+                track_id=1, handler="vide", timescale=outputs.timescale,
                 sample_entry=av01_sample_entry(
                     rung.width, rung.height,
                     av1c_record(prof, level, tier)),
                 width=rung.width, height=rung.height)
-            rdir = out / rung.name
-            rdir.mkdir(parents=True, exist_ok=True)
             # AV1 never resumes (a third-party encoder's mid-stream
             # state is unreconstructable): always purge stale segments
-            for seg in rdir.glob("segment_*.m4s"):
+            for seg in (outputs.out / rung.name).glob("segment_*.m4s"):
                 seg.unlink(missing_ok=True)
-            prepare_init_segment(
-                rdir, init_segment(tracks[rung.name]),
-                config_tag=f"av1:delegated:gop={frames_per_seg}")
+            outputs.open(rung, init_segment(tracks[rung.name]),
+                         config_tag=f"av1:delegated:gop={frames_per_seg}")
 
         next_pts: dict[str, int] = {r.name: 0 for r in plan.rungs}
-
-        def write_segment(rung, chunk: list[Sample]) -> None:
-            name = rung.name
-            idx = seg_counts[name]
-            # base decode time = sum of durations of all prior segments
-            base_time = int(round(sum(seg_durs[name]) * timescale))
-            data = media_segment(tracks[name], idx + 1, base_time, chunk)
-            atomic_write_bytes(out / name / f"segment_{idx + 1:05d}.m4s",
-                               data)
-            seg_counts[name] = idx + 1
-            seg_durs[name].append(sum(s.duration for s in chunk) / timescale)
-            bytes_written[name] += len(data)
 
         def drain(rung, pkts) -> None:
             for data, is_key, pts in pkts:
@@ -272,14 +227,8 @@ def run_av1(backend, plan, progress_cb, resume: bool, t0: float
                         "timing (encoder not in low-delay mode?)")
                 next_pts[rung.name] = pts + 1
                 ensure_track(rung, data)
-                pending[rung.name].append(
-                    Sample(data=data, duration=frame_dur, is_sync=is_key))
-            tw = time.perf_counter()
-            while len(pending[rung.name]) >= frames_per_seg:
-                chunk = pending[rung.name][:frames_per_seg]
-                pending[rung.name] = pending[rung.name][frames_per_seg:]
-                write_segment(rung, chunk)
-            pipe.prof_add("package_s", time.perf_counter() - tw)
+                outputs.queue(rung.name, data, is_key)
+            outputs.write_whole(rung.name, ladder.pipe.prof_add)
 
         # --- consume side on the shared stage-decoupled executor: the
         # delegated encoders are stateful and order-sensitive per rung
@@ -298,7 +247,7 @@ def run_av1(backend, plan, progress_cb, resume: bool, t0: float
                 return resize_on(name, dev, by, bu, bv)
             col = grid.column_of(name)
             (by, bu, bv), _ = pad_batch(grid.data, by, bu, bv)
-            pipe.note_pad_waste(n, by.shape[0])
+            ladder.pipe.note_pad_waste(n, by.shape[0])
             # each data device resizes its contiguous block of frames
             shards = zip(data_devices(col.mesh),
                          *shard_frames(col.mesh, by, bu, bv))
@@ -316,92 +265,41 @@ def run_av1(backend, plan, progress_cb, resume: bool, t0: float
                          force_key=(fi % frames_per_seg == 0))
                 frame_idx[name] = fi + 1
                 drain(rung, enc.receive())
-            pipe.prof_add("entropy_s", time.perf_counter() - te)
+            ladder.pipe.prof_add("entropy_s", time.perf_counter() - te)
 
-        def on_batch_done(batch):
-            # serialized + batch-ordered by the executor's contract
-            nonlocal frames_done
-            frames_done += batch.n_real
-            if progress_cb is not None:
-                progress_cb(frames_done, max(total, frames_done),
-                            "av1 ladder")
-
-        pipe = PipelineExecutor(
-            [r.name for r in plan.rungs], pull=pull, process=process,
-            on_batch_done=on_batch_done,
-            host_pool=host_pool_for_run(),   # shared across slot executors
-            prof=prof, name="vlog-pipe")
-
-        prefetch = None
+        # the delegated encoder has no separate device stage:
+        # compute_wait_s stays 0, device_pull_s is the resize and its copy
         try:
-            # the reference's one-batch decode prefetch
-            prefetch = DecodePrefetch(src, batch_n, start_frame, maxsize=1)
-            while True:
-                td = time.perf_counter()
-                item = prefetch.get()
-                prof["decode_wait_s"] += time.perf_counter() - td
-                if item is None:
-                    break
-                by, bu, bv = item
-                if plan.thumbnail and thumb_path is None:
-                    # the first batch's first frame, on the host pool
-                    thumb_path = str(out / THUMBNAIL_NAME)
-                    pipe.submit_aux(backend._write_thumbnail, by[0],
-                                    bu[0], bv[0], thumb_path, 1280, dev)
-                pipe.reserve()
-                pipe.submit(None, by.shape[0], extra=(by, bu, bv))
-            pipe.drain()
-            for rung in plan.rungs:
-                drain(rung, encoders[rung.name].flush())
-                if pending[rung.name]:
-                    write_segment(rung, pending[rung.name])
-                    pending[rung.name] = []
+            with LadderRun(plan, outputs, src, process,
+                           progress_cb=progress_cb,
+                           report=lambda n: (max(total, n), "av1 ladder"),
+                           pull=pull, ready=None) as ladder:
+                prefetch = None
+                try:
+                    # the reference's one-batch decode prefetch
+                    prefetch = DecodePrefetch(src, batch_n, 0, maxsize=1)
+                    while True:
+                        td = time.perf_counter()
+                        item = prefetch.get()
+                        ladder.prof["decode_wait_s"] += (time.perf_counter()
+                                                         - td)
+                        if item is None:
+                            break
+                        outputs.thumbnail(ladder.pipe,
+                                          backend._write_thumbnail, item, dev)
+                        ladder.pipe.reserve()
+                        ladder.pipe.submit(None, item[0].shape[0],
+                                           extra=tuple(item))
+                    ladder.pipe.drain()
+                    for rung in plan.rungs:
+                        drain(rung, encoders[rung.name].flush())
+                    outputs.write_rest()
+                finally:
+                    if prefetch is not None:
+                        prefetch.close()
         finally:
-            if prefetch is not None:
-                prefetch.close()
-            pipe.close()
-            for enc in encoders.values():
-                enc.close()
+            _close_all()
     finally:
         src.close()
-
-    true_total = total if src.exact_seek else frames_done
-    duration_s = true_total / fps if fps else 0.0
-    results, variants = [], []
-    for rung in plan.rungs:
-        name = rung.name
-        cstr = codec_string_from_tu(meta.get(name))
-        playlist = hls.media_playlist(
-            [hls.SegmentRef(uri=f"segment_{i + 1:05d}.m4s",
-                            duration_s=seg_durs[name][i])
-             for i in range(seg_counts[name])],
-            target_duration_s=plan.segment_duration_s,
-            init_uri="init.mp4")
-        ppath = out / name / "playlist.m3u8"
-        atomic_write_text(ppath, playlist)
-        total_dur = sum(seg_durs[name])
-        achieved = (int(bytes_written[name] * 8 / total_dur)
-                    if total_dur else 0)
-        results.append(RungResult(
-            name=name, width=rung.width, height=rung.height,
-            codec_string=cstr, segment_count=seg_counts[name],
-            bytes_written=bytes_written[name], mean_psnr_y=None,
-            achieved_bitrate=achieved, playlist_path=str(ppath),
-            target_bitrate=rung.video_bitrate))
-        variants.append(hls.VariantRef(
-            name=name, uri=f"{name}/playlist.m3u8",
-            bandwidth=max(achieved, 1), width=rung.width,
-            height=rung.height, codecs=cstr, frame_rate=fps,
-            audio_group=(f"aud{rung.audio_bitrate // 1000}"
-                         if rung.audio_bitrate else "")))
-    atomic_write_text(out / "master.m3u8", hls.master_playlist(variants))
-    atomic_write_text(out / "manifest.mpd", hls.dash_manifest(
-        variants, duration_s=duration_s,
-        segment_duration_s=plan.segment_duration_s))
-    return RunResult(
-        rungs=results, frames_processed=frames_done,
-        duration_s=duration_s, thumbnail_path=thumb_path,
-        wall_s=time.monotonic() - t0, variants=variants, fps=fps,
-        segment_duration_s=plan.segment_duration_s,
-        stage_s={k: round(v, 3) for k, v in prof.items()} | pipe.gauges(),
-        gop_len=frames_per_seg)
+    return ladder.result({r.name: codec_string_from_tu(meta.get(r.name))
+                          for r in plan.rungs}, t0=t0, gop_len=frames_per_seg)

@@ -1,14 +1,21 @@
 """The PyTorch/CUDA ladder backend: a source in, an HLS tree out (port of
 the H.264 path of ``vlog_tpu/backends/jax_backend.py``).
 
+:meth:`TorchBackend.run` runs ``codec="h265"`` (or ``"hevc"``) on the
+HEVC path (backends/hevc_path.py, CMAF only), ``codec="av1"`` on the
+delegated AV1 encode (backends/av1_path.py, CMAF only: the resize
+kernel on the device, the system AV1 encoder through the libav shim),
+and H.264 here. The batch loop, the rung outputs, resume and publish
+are backends/ladder_run.py's; this module gives them H.264's part.
+
 Sources open through ``backends/source.py::open_source``: Y4M, an MP4 in
 the first-party H.264 envelope (decoded on the backend's device), or a
 foreign file through the libav shim. Per dispatch batch: host read or
-decode -> device ladder program
-(parallel/ladder.py: the resize kernel, then I+P chains with deblocking
-and in-chain rate adaptation, or intra-only frames) -> device-to-host
-copy of int16 levels (and MVs) -> host CABAC or CAVLC (native) ->
-segments. Output per rung, CMAF (default):
+decode -> device ladder program (parallel/ladder.py: the resize kernel,
+then I+P chains with deblocking and in-chain rate adaptation, or
+intra-only frames) -> device-to-host copy of int16 levels (and MVs) ->
+host CABAC or CAVLC (native) -> segments. Output per rung, CMAF
+(default):
 
     {out}/{rung}/init.mp4, encoder.tag, segment_%05d.m4s, playlist.m3u8
 
@@ -17,45 +24,23 @@ plus ``master.m3u8``, ``manifest.mpd``, ``rc_journal.jsonl`` and
 ``segment_%05d.ts`` (ADTS audio muxed in when the plan carries it) and
 no init segment, DASH manifest or journal.
 
-The stages overlap through ``parallel/executor.py``: a prefetch thread
-reads or decodes the next batches, the dispatch thread queues each
-batch's ladder program on the run's compute stream and starts its
-device-to-host copies on a copy stream, one consumer thread per rung
-entropy-codes (frames fanned out on the host pool) and packages its
-rung in batch order, and ``VLOG_PIPELINE_DEPTH`` batches (default 2)
-are in flight. The rate-control schedule is the JAX backend's:
-observations of batch k apply before dispatch of batch k + depth, and
-every observation applies right after a batch while a controller is
-hunting, so both backends plan the same QPs and write the same journal.
-Under the mesh scheduler a run executes on its lease: a lease one device
-wide runs the one-device program there; a wider one lays the ladder out
-as the lease's (data x rung) grid (``VLOG_TPU_MESH``; columns of rungs,
-each column's chains or frames split over its data devices,
-``parallel/ladder.py::GridProgram``), while decode and the thumbnail
-stay on the lease's first device. Batch sizes key off the grid's data
-width only (the reference's rule): whole chains per dispatch rounded up
-to the data width, or intra batches rounded up to it, so every grid
-whose data width divides the batch writes the same tree.
-``RunResult.stage_s`` has the reference's keys: the busy seconds of
-``decode_wait_s``, ``compute_wait_s``, ``device_pull_s``, ``entropy_s``
-and ``package_s``, ``pad_frames``, ``rung_<name>_s`` per rung, and the
-executor's gauges; and the port's ``enqueue_s`` and ``dispatch_wall_s``.
-Each dispatch leaves a record in ``RunResult.dispatches`` (the
-executor's ``timed_dispatch``), as on the HEVC path, and the dispatch
-thread's steps are ``stage`` spans (README's port section).
-A CMAF run resumes from the segments on disk
-(``run(..., resume=True)``, the default): the resume point is clamped to
-a batch boundary the journal can replay, so the resumed tree equals the
-uninterrupted one, whichever of the two backends wrote its first part;
-a libav source (no frame-exact seek) never resumes. A dispatch whose
-real frames fill fewer chains than the batch holds (the source's tail)
-encodes only the chains that hold real frames, and a lone partial chain
-only up to its last real frame: the JAX program encodes the replicated
-padding too and drops it, so the written bytes are the same.
-``codec="h265"`` (or ``"hevc"``) runs the HEVC ladder instead
-(backends/hevc_path.py, CMAF only), and ``codec="av1"`` the delegated
-AV1 encode (backends/av1_path.py, CMAF only: the resize kernel on the
-device, the system AV1 encoder through the libav shim).
+H.264's part: the encoders and ``avc1`` tracks, the MPEG-TS muxing, the
+two program kinds (I+P chains, whose I frames take the -2 QP anchor on
+the host, and intra frames), each rung's entropy coding
+(``process_chain``, ``process_intra``), the thumbnail, and the
+rate-control journal, which both backends write alike. A CMAF run
+resumes from the segments on disk (``run(..., resume=True)``, the
+default) at a batch boundary the journal can replay, so the resumed tree
+equals the uninterrupted one, whichever backend wrote its first part; a
+libav source (no frame-exact seek) never resumes. Under the mesh
+scheduler a lease wider than one device lays the ladder out as its
+(data x rung) grid (``VLOG_TPU_MESH``, ``parallel/ladder.py::
+GridProgram``); decode and the thumbnail stay on its first device. A
+dispatch whose real frames fill fewer chains than the batch holds (the
+source's tail) encodes only the chains that hold real frames, and a
+lone partial chain only up to its last real frame: the JAX program
+encodes the replicated padding too and drops it, so the bytes are the
+same.
 """
 
 from __future__ import annotations
@@ -72,14 +57,14 @@ from vlog_tpu_torch.backends import rc_journal as rcj
 from vlog_tpu_torch.backends.base import (
     Capabilities,
     ExecutionPlan,
-    RungResult,
     RunResult,
-    THUMBNAIL_NAME,
     plan_rung_geometry,
     register_backend,
 )
 from vlog_tpu_torch.backends.av1_path import run_av1
 from vlog_tpu_torch.backends.hevc_path import run_hevc
+from vlog_tpu_torch.backends.ladder_run import (LadderRun, RungOutputs,
+                                                dispatch_geometry, psnr_y)
 from vlog_tpu_torch.backends.rate_control import RateController
 from vlog_tpu_torch.backends.source import open_source
 from vlog_tpu_torch.codecs.h264.api import H264Encoder
@@ -87,8 +72,6 @@ from vlog_tpu_torch.codecs.h264.encoder import FrameLevels
 from vlog_tpu_torch.codecs.jpeg.encoder import (JpegBlocks, pack_jpeg,
                                                 quantize_rgb)
 from vlog_tpu_torch.device import resolve_device
-from vlog_tpu_torch.media import hls
-from vlog_tpu_torch.media.boxes import parse_box_tree
 from vlog_tpu_torch.media.fmp4 import (Sample, TrackConfig, avc1_sample_entry,
                                        init_segment, media_segment)
 from vlog_tpu_torch.media.probe import VideoInfo
@@ -96,21 +79,14 @@ from vlog_tpu_torch.media.ts import TsMuxer, TsSample
 from vlog_tpu_torch.media.y4m import fps_to_fraction
 from vlog_tpu_torch.ops.colorspace import yuv420_to_rgb
 from vlog_tpu_torch.ops.fused_resize import resize_yuv420
-from vlog_tpu_torch.obs.trace import STAGE_KEYS, stage
 from vlog_tpu_torch.parallel.compile_cache import ensure_compile_cache
-from vlog_tpu_torch.parallel.executor import (DecodePrefetch,
-                                              LaggedRateControl,
-                                              PipelineExecutor,
-                                              dispatch_streams)
+from vlog_tpu_torch.parallel.executor import LaggedRateControl
 from vlog_tpu_torch.parallel.ladder import (ladder_chain_grid,
                                             ladder_encode_grid,
                                             ladder_matrices, mats_from_numpy)
 from vlog_tpu_torch.parallel.mesh import visible_cuda_devices
-from vlog_tpu_torch.parallel.scheduler import (host_pool_for_run,
-                                               placement_for_run)
 from vlog_tpu_torch.utils import failpoints
-from vlog_tpu_torch.utils.fsio import (atomic_write_bytes, atomic_write_text,
-                                       prepare_init_segment)
+from vlog_tpu_torch.utils.fsio import atomic_write_bytes
 
 _CHAIN_KEYS = ("i_luma_dc", "i_luma_ac", "i_chroma_dc", "i_chroma_ac",
                "p_luma", "p_chroma_dc", "p_chroma_ac", "mv", "sse_y",
@@ -198,13 +174,8 @@ class TorchBackend:
             return run_hevc(self, plan, progress_cb, resume, t0)
         if any(r.codec == "av1" for r in plan.rungs):
             return run_av1(self, plan, progress_cb, resume, t0)
-        out = plan.out_dir
         fps = plan.fps_num / plan.fps_den
-        frames_per_seg = max(1, round(plan.segment_duration_s * fps))
-        timescale = plan.fps_num * 1000
-        frame_dur = plan.fps_den * 1000
         ts_mode = plan.streaming_format == "hls_ts"
-        seg_ext = "ts" if ts_mode else "m4s"
         clen = plan.gop_len
         chain_mode = clen > 1
         # chains run the in-loop deblocking filter; intra frames do not
@@ -212,65 +183,74 @@ class TorchBackend:
         tag = f"h264:{config.H264_ENTROPY}:deblock={int(deblock)}"
         rungs_spec = tuple((r.name, r.height, r.width, r.qp)
                            for r in plan.rungs)
-        # whole chains per dispatch, enough for frame_batch frames
-        hint = max(1, -(-plan.frame_batch // clen))
-        # the lease's first device and grid under the scheduler, else the
-        # backend's device (every visible card for a generic "cuda")
-        dev, grid = placement_for_run(
-            self.device, rungs_spec,
-            hint if chain_mode else plan.frame_batch)
-        # batch math keys off the grid's data width only, so every shape
-        # whose data width divides the batch stages the same batches
-        data = grid.data if grid is not None else 1
-        chains_per = max(data, hint + (-hint) % data)
-        if chain_mode:
-            batch_n = clen * chains_per
-        else:
-            batch_n = max(plan.frame_batch, data)
-            batch_n += (-batch_n) % data
+        dev, grid, data, chains_per, batch_n = dispatch_geometry(
+            self.device, plan, rungs_spec, clen)
         ensure_compile_cache()
-        out.mkdir(parents=True, exist_ok=True)
 
+        # MPEG-TS: one muxer per rung for the whole playlist (a TS run
+        # never resumes: its continuity counters span the playlist),
+        # exact 90 kHz timestamps (multiply before dividing, per index)
+        audio_by_rate = plan.audio_adts or {}
+        ts_muxers: dict[str, TsMuxer] = {}
+        ts_frame_idx = {r.name: 0 for r in plan.rungs}
+        ts_audio_idx = {r.name: 0 for r in plan.rungs}
+
+        def vpts(idx: int) -> int:
+            return idx * 90000 * plan.fps_den // plan.fps_num
+
+        def apts(idx: int, sr: int) -> int:
+            return idx * 90000 * 1024 // sr
+
+        def segment_bytes(rung, index: int, base_time: int,
+                          chunk: list[Sample]) -> bytes:
+            name = rung.name
+            if not ts_mode:
+                return media_segment(tracks[name], index, base_time, chunk)
+            audio = audio_by_rate.get(rung.audio_bitrate)
+            mux = ts_muxers.get(name)
+            if mux is None:
+                mux = ts_muxers[name] = TsMuxer(
+                    has_video=True, has_audio=audio is not None)
+            i0 = ts_frame_idx[name]
+            vsamples = [TsSample(s.data, pts=vpts(i0 + k), is_idr=s.is_sync)
+                        for k, s in enumerate(chunk)]
+            ts_frame_idx[name] = i0 + len(chunk)
+            asamples = []
+            if audio is not None:
+                adts, sr = audio
+                t_end = vpts(ts_frame_idx[name])
+                j = ts_audio_idx[name]
+                while j < len(adts) and apts(j, sr) < t_end:
+                    asamples.append(TsSample(adts[j], pts=apts(j, sr)))
+                    j += 1
+                ts_audio_idx[name] = j
+            return mux.mux_segment(video=vsamples, audio=asamples or None)
+
+        outputs = RungOutputs(plan, segment_bytes)
+        frames_per_seg = outputs.frames_per_seg
         encoders, tracks = {}, {}
-        seg_durs: dict[str, list[float]] = {}
-        bytes_written: dict[str, int] = {}
-        psnr_acc: dict[str, list[float]] = {}
-        pending: dict[str, list[Sample]] = {}
-        init_matched: dict[str, bool] = {}
         for rung in plan.rungs:
-            enc = H264Encoder(width=rung.width, height=rung.height,
-                              fps_num=plan.fps_num, fps_den=plan.fps_den,
-                              qp=rung.qp, entropy=config.H264_ENTROPY,
-                              deblock=deblock)
-            encoders[rung.name] = enc
+            enc = encoders[rung.name] = H264Encoder(
+                width=rung.width, height=rung.height, fps_num=plan.fps_num,
+                fps_den=plan.fps_den, qp=rung.qp,
+                entropy=config.H264_ENTROPY, deblock=deblock)
             tracks[rung.name] = TrackConfig(
-                track_id=1, handler="vide", timescale=timescale,
+                track_id=1, handler="vide", timescale=outputs.timescale,
                 sample_entry=avc1_sample_entry(rung.width, rung.height,
                                                enc.avcc_config),
                 width=rung.width, height=rung.height)
-            rdir = out / rung.name
-            rdir.mkdir(parents=True, exist_ok=True)
-            if not ts_mode:
-                init_matched[rung.name] = prepare_init_segment(
-                    rdir, init_segment(tracks[rung.name]),
-                    config_tag=f"{tag}:gop={clen}")
-            seg_durs[rung.name] = []
-            bytes_written[rung.name] = 0
-            psnr_acc[rung.name] = []
-            pending[rung.name] = []
+            outputs.open(rung, None if ts_mode else init_segment(
+                tracks[rung.name]), config_tag=f"{tag}:gop={clen}")
 
         src = open_source(plan.source.path, dev)
         journal = None
         try:
             total = src.frame_count
             # resume candidate: the first segment any rung is missing (TS
-            # restarts from 0, its continuity counters span the whole
-            # playlist; a libav source seeks only to keyframes)
-            start_segment = 0
-            per_rung = None
-            if resume and not ts_mode and src.exact_seek:
-                per_rung = self._scan_resume_candidates(plan, out, init_matched)
-                start_segment = min(len(d) for d in per_rung.values())
+            # restarts from 0; a libav source seeks only to keyframes)
+            start_segment = (outputs.resumable()
+                             if resume and not ts_mode and src.exact_seek
+                             else 0)
 
             src_h, src_w = plan.source.height, plan.source.width
             if chain_mode:
@@ -293,7 +273,7 @@ class TorchBackend:
             # them; otherwise the legacy cold resume
             start_batch = 0
             if not ts_mode:
-                jpath = out / rcj.RC_JOURNAL_NAME
+                jpath = plan.out_dir / rcj.RC_JOURNAL_NAME
                 header = rcj.make_header(
                     batch_n=batch_n, depth=depth,
                     frames_per_seg=frames_per_seg, gop_len=clen,
@@ -315,99 +295,27 @@ class TorchBackend:
                         # the frame this timeline starts from
                         header = {**header, "origin_frame":
                                   start_segment * frames_per_seg}
-                    self._apply_resume_state(plan, per_rung, start_segment,
-                                             timescale, seg_durs,
-                                             bytes_written)
                 journal = rcj.RCJournal(jpath, header,
                                         keep_batches=start_batch)
-            start_frame = start_segment * frames_per_seg
+            outputs.resume(start_segment)
             for enc in encoders.values():
-                enc.start_at(start_frame, clen)
-            thumb_path = None
-            if plan.thumbnail and start_segment > 0 \
-                    and (out / THUMBNAIL_NAME).exists():
-                # a resumed run keeps the original first-frame thumbnail
-                thumb_path = str(out / THUMBNAIL_NAME)
-
+                enc.start_at(outputs.start_frame, clen)
             npix = {r.name: r.height * r.width for r in plan.rungs}
-            rungs_by_name = {r.name: r for r in plan.rungs}
-            # cumulative busy seconds per stage (obs/trace.py STAGE_KEYS);
-            # the executor adds its overlap gauges
-            prof = dict.fromkeys(STAGE_KEYS, 0.0)
 
-            # MPEG-TS: one muxer per rung for the whole playlist, exact
-            # 90 kHz timestamps (multiply before dividing, per index)
-            audio_by_rate = plan.audio_adts or {}
-            ts_muxers: dict[str, TsMuxer] = {}
-            ts_frame_idx = {r.name: start_frame for r in plan.rungs}
-            ts_audio_idx = {r.name: 0 for r in plan.rungs}
-
-            def vpts(idx: int) -> int:
-                return idx * 90000 * plan.fps_den // plan.fps_num
-
-            def apts(idx: int, sr: int) -> int:
-                return idx * 90000 * 1024 // sr
-
-            def segment_bytes(rung, chunk: list[Sample]) -> bytes:
-                name = rung.name
-                if not ts_mode:
-                    base_time = int(round(sum(seg_durs[name]) * timescale))
-                    return media_segment(tracks[name], len(seg_durs[name]) + 1,
-                                         base_time, chunk)
-                audio = audio_by_rate.get(rung.audio_bitrate)
-                mux = ts_muxers.get(name)
-                if mux is None:
-                    mux = ts_muxers[name] = TsMuxer(
-                        has_video=True, has_audio=audio is not None)
-                i0 = ts_frame_idx[name]
-                vsamples = [TsSample(s.data, pts=vpts(i0 + k), is_idr=s.is_sync)
-                            for k, s in enumerate(chunk)]
-                ts_frame_idx[name] = i0 + len(chunk)
-                asamples = []
-                if audio is not None:
-                    adts, sr = audio
-                    t_end = vpts(ts_frame_idx[name])
-                    j = ts_audio_idx[name]
-                    while j < len(adts) and apts(j, sr) < t_end:
-                        asamples.append(TsSample(adts[j], pts=apts(j, sr)))
-                        j += 1
-                    ts_audio_idx[name] = j
-                return mux.mux_segment(video=vsamples, audio=asamples or None)
-
-            def write_segment(rung, chunk: list[Sample]) -> None:
-                name = rung.name
-                data = segment_bytes(rung, chunk)
-                idx = len(seg_durs[name])
-                atomic_write_bytes(out / name / f"segment_{idx + 1:05d}.{seg_ext}",
-                                   data)
-                seg_durs[name].append(sum(s.duration for s in chunk) / timescale)
-                bytes_written[name] += len(data)
-
-            def finish(rung, batch_index: int, frames, batch_bytes: int,
-                       n_frames: int, rc_mix, cost) -> None:
+            def finish(name: str, batch_index: int, frames,
+                       batch_bytes: int, n_frames: int, rc_mix,
+                       cost) -> None:
                 """Queue a rung's coded frames, post its rate observation
                 (and journal it), write the segments that are whole."""
-                name = rung.name
                 for ef in frames:
-                    pending[name].append(Sample(
-                        data=ef.annexb if ts_mode else ef.avcc,
-                        duration=frame_dur, is_sync=ef.is_idr))
-                    psnr_acc[name].append(ef.psnr_y)
+                    outputs.queue(name, ef.annexb if ts_mode else ef.avcc,
+                                  ef.is_idr, ef.psnr_y)
                 rc.post(name, batch_index, nbytes=batch_bytes,
                         frames=n_frames, frame_qps=rc_mix, cost=cost)
                 if journal is not None:
                     journal.record(batch_index, name, nbytes=batch_bytes,
                                    frames=n_frames, qps=rc_mix, cost=cost)
-                tw = time.perf_counter()
-                while len(pending[name]) >= frames_per_seg:
-                    chunk = pending[name][:frames_per_seg]
-                    pending[name] = pending[name][frames_per_seg:]
-                    write_segment(rung, chunk)
-                pipe.prof_add("package_s", time.perf_counter() - tw)
-
-            def psnr_of(sse, name):
-                mse = np.maximum(sse / npix[name], 1e-12)
-                return np.where(mse < 1e-9, 99.0, 10 * np.log10(255 ** 2 / mse))
+                outputs.write_whole(name, ladder.pipe.prof_add)
 
             def process_chain(name: str, batch, host: dict) -> None:
                 """Entropy-code one rung of a dispatch of chains (display
@@ -438,13 +346,14 @@ class TorchBackend:
                               for fi in range(keep - 1)]
                     frames += encoders[name].encode_chain(
                         lv0, p_list, qarr[ci, :keep],
-                        psnr_of(sse[ci, :keep], name), pool=pipe.host_pool)
+                        psnr_y(sse[ci, :keep], npix[name]),
+                        pool=ladder.pipe.host_pool)
                     n_frames += keep
                 rc_mix = np.concatenate(rc_qs) if rc_qs else None
                 if rc_mix is not None and rc_mix.size == 0:
                     rc_mix = None
-                pipe.prof_add("entropy_s", time.perf_counter() - te)
-                finish(rungs_by_name[name], batch.index, frames,
+                ladder.pipe.prof_add("entropy_s", time.perf_counter() - te)
+                finish(name, batch.index, frames,
                        sum(len(ef.avcc) for ef in frames), max(n_frames, 1),
                        rc_mix, cost_sum)
 
@@ -456,247 +365,53 @@ class TorchBackend:
                           for k in _INTRA_KEYS[:4]}
                 q_used = batch.qps[name][:n_real]
                 frames = encoders[name].encode_levels(
-                    levels, q_used, psnr_of(host["sse_y"][:n_real], name),
-                    pool=pipe.host_pool)
-                pipe.prof_add("entropy_s", time.perf_counter() - te)
-                finish(rungs_by_name[name], batch.index, frames,
+                    levels, q_used, psnr_y(host["sse_y"][:n_real], npix[name]),
+                    pool=ladder.pipe.host_pool)
+                ladder.pipe.prof_add("entropy_s", time.perf_counter() - te)
+                finish(name, batch.index, frames,
                        sum(len(ef.avcc) for ef in frames), n_real, q_used,
                        None)
 
-            frames_done = start_frame
+            def chain_lead(n_real: int) -> tuple[int, int]:
+                # only the chains holding real frames (a lone chain only
+                # up to its last real frame, >= 2), padded to the data width
+                real = -(-n_real // clen)
+                return (real + (-real) % data,
+                        clen if real > 1 else max(2, n_real))
 
-            def on_batch_done(batch) -> None:
-                # serialized and in batch order (the executor's contract)
-                nonlocal frames_done
-                frames_done += batch.n_real
-                if progress_cb:
-                    progress_cb(frames_done, total,
-                                f"encoded {frames_done}/{total} frames")
+            def chain_args(lead: tuple[int, int]) -> tuple[dict, dict]:
+                qps = {}
+                for r in plan.rungs:
+                    # the I frames take the -2 QP anchor
+                    q = controllers[r.name].frame_qps(batch_n).reshape(
+                        chains_per, clen)
+                    q[:, 0] = np.maximum(q[:, 0] - 2, 0)
+                    qps[r.name] = np.ascontiguousarray(q[:lead[0], :lead[1]])
+                return qps, {r.name: controllers[r.name].device_rc_params()
+                             for r in plan.rungs}
 
-            keys = _CHAIN_KEYS if chain_mode else _INTRA_KEYS
-            pipe = PipelineExecutor(
-                [r.name for r in plan.rungs],
-                pull=lambda name, batch: batch.d2h.host(name),
-                process=process_chain if chain_mode else process_intra,
-                ready=lambda batch: batch.d2h.wait_compute(),
-                on_batch_done=on_batch_done,
-                host_pool=host_pool_for_run(),   # shared across slot jobs
-                prof=prof, name="vlog-pipe")
-            prefetch = None
-            try:
-                prefetch = DecodePrefetch(src, batch_n, start_frame, maxsize=2)
-                batch_idx = 0
-                with dispatch_streams(prog.devices):
-                    while True:
-                        td = time.perf_counter()
-                        with stage("executor.decode_wait"):
-                            item = prefetch.get()
-                        prof["decode_wait_s"] += time.perf_counter() - td
-                        if item is None:
-                            break
-                        n_real = item[0].shape[0]
-                        if plan.thumbnail and thumb_path is None:
-                            # the first batch's first frame, on the host pool
-                            thumb_path = str(out / THUMBNAIL_NAME)
-                            pipe.submit_aux(self._write_thumbnail,
-                                            *(p[0] for p in item), thumb_path,
-                                            1280, dev)
-                        if chain_mode:
-                            # only the chains holding real frames (a lone
-                            # chain only up to its last real frame, >= 2),
-                            # padded to the data width
-                            real = -(-n_real // clen)
-                            lead = (real + (-real) % data,
-                                    clen if real > 1 else max(2, n_real))
-                        else:
-                            lead = (batch_n,)
-                        n_disp = int(np.prod(lead))
-                        # backpressure before planning: batches <= N-depth
-                        # are consumed, so every depth plans the same QPs
-                        with stage("executor.reserve"):
-                            pipe.reserve()
-                        with stage("executor.plan"):
-                            rc.apply_upto(batch_idx - pipe.depth)
-                            pipe.note_pad_waste(n_real, n_disp)
-                            # tail: replicate the last frame, dropped after
-                            # encode
-                            planes = [(np.concatenate(
-                                [p, np.repeat(p[-1:], n_disp - n_real, 0)])
-                                if n_disp > n_real else p)
-                                .reshape(lead + p.shape[1:]) for p in item]
-                            qps = {}
-                            for r in plan.rungs:
-                                q = controllers[r.name].frame_qps(batch_n)
-                                if chain_mode:
-                                    # the I frames take the -2 QP anchor
-                                    q = q.reshape(chains_per, clen)
-                                    q[:, 0] = np.maximum(q[:, 0] - 2, 0)
-                                    q = np.ascontiguousarray(
-                                        q[:lead[0], :lead[1]])
-                                qps[r.name] = q
-                            rc_params = {
-                                r.name: controllers[r.name].device_rc_params()
-                                for r in plan.rungs} if chain_mode else None
-                        # each column stages the batch on its devices and
-                        # leaves its rungs' outputs there
-                        with stage("executor.dispatch"), \
-                                pipe.timed_dispatch(n_disp,
-                                                    prog.devices) as rec:
-                            if chain_mode:
-                                outs = prog.dispatch(*planes, qps, rc_params)
-                            else:
-                                outs = prog.dispatch(*planes, qps)
-                        with stage("executor.submit"):
-                            pipe.submit({r.name: {k: outs[r.name][k]
-                                                  for k in keys}
-                                         for r in plan.rungs}, n_real, qps,
-                                        record=rec)
-                        del outs, planes
-                        batch_idx += 1
-                        if rc.hunting():
-                            # calibration or cliff hunt: drain to depth 0 so
-                            # every correction lands before the next batch
-                            pipe.drain()
-                            rc.apply_upto(batch_idx - 1)
-                    pipe.drain()
-                for rung in plan.rungs:                  # trailing partials
-                    if pending[rung.name]:
-                        write_segment(rung, pending[rung.name])
-                        pending[rung.name] = []
-            finally:
-                if prefetch is not None:
-                    prefetch.close()
-                pipe.close()
+            def intra_args(lead: tuple[int]) -> tuple[dict]:
+                return ({r.name: controllers[r.name].frame_qps(batch_n)
+                         for r in plan.rungs},)
+
+            with LadderRun(
+                    plan, outputs, src,
+                    process_chain if chain_mode else process_intra,
+                    progress_cb=progress_cb,
+                    report=lambda n: (total, f"encoded {n}/{total} frames"),
+            ) as ladder:
+                ladder.dispatch(
+                    prog, rc, batch_n=batch_n, prefetch=2,
+                    keys=_CHAIN_KEYS if chain_mode else _INTRA_KEYS,
+                    lead=chain_lead if chain_mode else lambda n: (batch_n,),
+                    plan_args=chain_args if chain_mode else intra_args,
+                    write_thumbnail=self._write_thumbnail, device=dev)
         finally:
             src.close()
             if journal is not None:
                 journal.close()
-
-        # an inexact (libav) source's frame count is an estimate: trust
-        # the frames actually decoded
-        true_total = total if src.exact_seek else frames_done
-        duration_s = true_total / fps if fps else 0.0
-        results, variants = self._publish(plan, encoders, seg_durs,
-                                          bytes_written, psnr_acc,
-                                          duration_s, audio_by_rate)
-        return RunResult(
-            rungs=results, frames_processed=frames_done,
-            duration_s=duration_s, thumbnail_path=thumb_path,
-            wall_s=time.monotonic() - t0, variants=variants, fps=fps,
-            segment_duration_s=plan.segment_duration_s,
-            stage_s={k: round(v, 3) for k, v in prof.items()}
-            | pipe.gauges(),
-            gop_len=clen, resumed_segments=start_segment * len(plan.rungs),
-            dispatches=pipe.dispatches)
-
-    @staticmethod
-    def _publish(plan, encoders, seg_durs, bytes_written, psnr_acc,
-                 duration_s: float, audio_by_rate=None):
-        """Write each rung's media playlist, ``master.m3u8`` and (CMAF)
-        ``manifest.mpd``; returns the rung results and the variants."""
-        out = plan.out_dir
-        fps = plan.fps_num / plan.fps_den
-        ts_mode = plan.streaming_format == "hls_ts"
-        audio_by_rate = audio_by_rate or {}
-        results, variants = [], []
-        for rung in plan.rungs:
-            name = rung.name
-            enc = encoders[name]
-            playlist = hls.media_playlist(
-                [hls.SegmentRef(uri=f"segment_{i + 1:05d}."
-                                    f"{'ts' if ts_mode else 'm4s'}",
-                                duration_s=d)
-                 for i, d in enumerate(seg_durs[name])],
-                target_duration_s=plan.segment_duration_s,
-                init_uri=None if ts_mode else "init.mp4")
-            ppath = out / name / "playlist.m3u8"
-            atomic_write_text(ppath, playlist)
-            total_dur = sum(seg_durs[name])
-            achieved = (int(bytes_written[name] * 8 / total_dur)
-                        if total_dur else 0)
-            results.append(RungResult(
-                name=name, width=rung.width, height=rung.height,
-                codec_string=enc.codec_string,
-                segment_count=len(seg_durs[name]),
-                bytes_written=bytes_written[name],
-                mean_psnr_y=(float(np.mean(psnr_acc[name]))
-                             if psnr_acc[name] else None),
-                achieved_bitrate=achieved, playlist_path=str(ppath),
-                target_bitrate=rung.video_bitrate))
-            # TS variants carry muxed AAC: CODECS lists every format and
-            # BANDWIDTH includes the audio (RFC 8216)
-            muxed = ts_mode and rung.audio_bitrate in audio_by_rate
-            variants.append(hls.VariantRef(
-                name=name, uri=f"{name}/playlist.m3u8",
-                bandwidth=max(achieved, 1)
-                + (rung.audio_bitrate if muxed else 0),
-                width=rung.width, height=rung.height,
-                codecs=(enc.codec_string + ",mp4a.40.2" if muxed
-                        else enc.codec_string),
-                frame_rate=fps,
-                audio_group=("" if ts_mode else
-                             (f"aud{rung.audio_bitrate // 1000}"
-                              if rung.audio_bitrate else ""))))
-        atomic_write_text(out / "master.m3u8", hls.master_playlist(variants))
-        if not ts_mode:      # DASH is CMAF-only; TS serves HLS alone
-            atomic_write_text(out / "manifest.mpd", hls.dash_manifest(
-                variants, duration_s=duration_s,
-                segment_duration_s=plan.segment_duration_s))
-        return results, variants
-
-    # ------------------------------------------------------------------
-    def _scan_resume_candidates(self, plan, out, init_matched
-                                ) -> dict[str, list[int]]:
-        """Per-rung timescale durations of the contiguous valid segments
-        on disk; a rung whose init segment did not match restarts."""
-        per_rung = {}
-        for r in plan.rungs:
-            existing = self._existing_segments(out / r.name)
-            if existing and not init_matched.get(r.name, False):
-                existing = []
-            per_rung[r.name] = existing
-        return per_rung
-
-    @staticmethod
-    def _apply_resume_state(plan, per_rung, start_segment, timescale,
-                            seg_durs, bytes_written) -> None:
-        """Install the resumed prefix into the run's per-rung state."""
-        for rung in plan.rungs:
-            durs = per_rung[rung.name][:start_segment]
-            seg_durs[rung.name] = [d / timescale for d in durs]
-            for i in range(start_segment):
-                seg = plan.out_dir / rung.name / f"segment_{i + 1:05d}.m4s"
-                bytes_written[rung.name] += seg.stat().st_size
-
-    @staticmethod
-    def _existing_segments(rdir: Path) -> list[int]:
-        """Timescale durations of the contiguous valid segments: one
-        counts only if its moof parses and carries samples."""
-        durations: list[int] = []
-        if not (rdir / "init.mp4").exists():
-            return durations
-        i = 0
-        while True:
-            seg = rdir / f"segment_{i + 1:05d}.m4s"
-            if not seg.exists() or seg.stat().st_size < 16:
-                break
-            try:
-                with open(seg, "rb") as fp:
-                    tree = parse_box_tree(fp)
-                moof = next(b for b in tree if b.type == "moof")
-                trun = moof.find("traf", "trun")
-                n = int.from_bytes(trun.payload[4:8], "big")
-                if n == 0:
-                    break
-                # trun payload: ver/flags, count, data_offset, then
-                # (duration, size, flags, cts) per sample
-                dur = sum(int.from_bytes(trun.payload[12 + 16 * k:16 + 16 * k],
-                                         "big") for k in range(n))
-            except (StopIteration, AttributeError, ValueError, IndexError):
-                break  # torn write
-            durations.append(dur)
-            i += 1
-        return durations
+        return ladder.result({r.name: encoders[r.name].codec_string
+                              for r in plan.rungs}, t0=t0, gop_len=clen)
 
     def _thumbnail_planes(self, y, u, v, max_width: int = 1280,
                           device: torch.device | None = None):

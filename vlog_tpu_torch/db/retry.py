@@ -10,9 +10,8 @@ on both backends:
 - Postgres: deadlock (40P01), serialization failure (40001), lock
   not available (55P03), connection drops (08xxx / 57P03).
 
-These become load-bearing exactly when a libpq driver (the JAX package's
-db/pg.py; not ported) is
-used under claim contention: two claim transactions can deadlock on
+These become load-bearing exactly when the Postgres backend (db/pg.py)
+is used under claim contention: two claim transactions can deadlock on
 row-lock order, and Postgres resolves it by killing one — which must
 retry, not 500. The wrapper is deliberately only applied to operations
 that are safe to re-run: whole transactions that re-read their inputs
